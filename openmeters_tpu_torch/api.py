@@ -1,0 +1,97 @@
+"""Batch API: arrays in, per-hop snapshots out (port of ``api.py``).
+
+``analyze()`` is the single-call entry; ``AnalysisSession`` holds state for
+incremental feeding.  Both take an explicit torch device and return
+snapshots as tensors on it.  Asking for ``"cuda"`` where no card is present
+raises; nothing moves to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMeta
+
+
+@dataclasses.dataclass
+class AnalysisSession:
+    """Incremental batched analysis over ``[n_streams]`` recordings."""
+
+    engine: MeterEngine
+    n_streams: int
+    device: torch.device | str
+    meta: StreamMeta | None = None
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.carry = self.engine.init(self.n_streams, device=self.device)
+        if self.meta is None:
+            self.meta = StreamMeta.default(
+                self.n_streams, channels=2, pad_channels=self.engine.config.channels
+            )
+        self.meta = StreamMeta(*(torch.as_tensor(m).to(self.device) for m in self.meta))
+
+    def feed(self, block, reset_mask=None) -> dict:
+        """One hop of ``[n_streams, block_frames, channels]`` audio."""
+        block = torch.as_tensor(block, dtype=torch.float32).to(self.device)
+        if reset_mask is not None:
+            reset_mask = torch.as_tensor(reset_mask, dtype=torch.bool).to(self.device)
+        self.carry, snaps = self.engine.step(self.carry, block, self.meta, reset_mask)
+        return snaps
+
+    def run(self, audio, collect: bool = True) -> list[dict]:
+        """Feed ``[n_streams, frames, channels]`` fully; returns the
+        snapshots of each hop."""
+        b = self.engine.config.block_frames
+        n = audio.shape[1] // b
+        out = []
+        for i in range(n):
+            snaps = self.feed(audio[:, i * b : (i + 1) * b])
+            if collect:
+                out.append(snaps)
+        return out
+
+
+def _pad_channels(audio: np.ndarray, channels: int) -> np.ndarray:
+    s, t, c = audio.shape
+    if c == channels:
+        return audio
+    if c > channels:
+        return audio[:, :, :channels]
+    out = np.zeros((s, t, channels), np.float32)
+    out[:, :, :c] = audio
+    return out
+
+
+def analyze(
+    audio: np.ndarray,
+    sample_rate: float = 48_000.0,
+    config: EngineConfig | None = None,
+    *,
+    device: torch.device | str,
+) -> list[dict]:
+    """Analyze recordings on ``device``.
+
+    Args:
+      audio: ``[frames, channels]`` (one stream) or
+        ``[n_streams, frames, channels]`` float32.
+      sample_rate: shared sample rate.
+      config: engine config; defaults to all default analyzers.
+      device: torch device to run on, e.g. ``"cuda"`` or ``"cpu"``.
+
+    Returns a list of per-hop snapshot dicts (final entry = end state).
+    """
+    audio = np.asarray(audio, np.float32)
+    if audio.ndim == 2:
+        audio = audio[None]
+    if config is None:
+        config = EngineConfig(sample_rate=sample_rate)
+    else:
+        config = dataclasses.replace(config, sample_rate=sample_rate)
+    engine = MeterEngine(config)
+    audio = _pad_channels(audio, engine.config.channels)
+    session = AnalysisSession(engine, audio.shape[0], device)
+    return session.run(audio)

@@ -1,0 +1,53 @@
+"""Carry state across packages.
+
+The meters hold no weights: what crosses between the JAX package and this
+one is the engine carry.  The JAX carry comes in as numpy arrays, with the
+shared scalars as 0-d arrays; here those scalars are host ints (or bools)
+and everything else is a tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _template(engine) -> dict:
+    return engine.init(1, device="meta")
+
+
+def carry_from_jax(carry_np: dict, engine, device=None) -> dict:
+    """The port's carry for ``engine`` from the JAX package's carry given
+    as numpy arrays (``jax.device_get`` of it).  Arrays are copied."""
+
+    def convert(node, tmpl, path):
+        if isinstance(tmpl, dict):
+            if set(node) != set(tmpl):
+                raise KeyError(f"{path}: keys {sorted(node)} != {sorted(tmpl)}")
+            return {k: convert(node[k], tmpl[k], f"{path}/{k}") for k in tmpl}
+        arr = np.asarray(node)
+        if isinstance(tmpl, bool):
+            return bool(arr)
+        if isinstance(tmpl, int):
+            return int(arr)
+        if arr.ndim != tmpl.ndim:
+            raise ValueError(f"{path}: rank {arr.ndim} != {tmpl.ndim}")
+        return torch.tensor(arr, dtype=tmpl.dtype, device=device)
+
+    return convert(carry_np, _template(engine), "")
+
+
+def carry_to_numpy(carry: dict) -> dict:
+    """Inverse of :func:`carry_from_jax`: host scalars become 0-d numpy
+    arrays (int32 or bool), tensors become numpy arrays."""
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, bool):
+            return np.asarray(node, bool)
+        if isinstance(node, int):
+            return np.asarray(node, np.int32)
+        return node.detach().cpu().numpy()
+
+    return convert(carry)

@@ -1,0 +1,218 @@
+"""PyTorch port, the flagship slice end to end: the same seeded audio through
+the JAX package's API and the port's, on the CPU.
+
+Tolerances: loudness fields within 0.01 LU/dB, true peak within 1e-3 dB;
+spectrogram codes within 2 (0.005 dB) at valid bins within 60 dB of their
+column's peak (see tests/test_torch_sliding.py for why deeper bins are not
+held to it); valid masks equal.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from openmeters_tpu import api as japi  # noqa: E402
+from openmeters_tpu.analyzers.spectrogram import SpectrogramConfig as JSpecConfig  # noqa: E402
+from openmeters_tpu.engine import EngineConfig as JEngineConfig  # noqa: E402
+from openmeters_tpu.engine import MeterEngine as JMeterEngine  # noqa: E402
+from openmeters_tpu.engine import StreamMeta as JStreamMeta  # noqa: E402
+from openmeters_tpu.utils.windows import WindowKind as JWindowKind  # noqa: E402
+from openmeters_tpu_torch import api as tapi  # noqa: E402
+from openmeters_tpu_torch import convert  # noqa: E402
+from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig  # noqa: E402
+from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMeta  # noqa: E402
+from openmeters_tpu_torch.utils.windows import WindowKind  # noqa: E402
+
+RESOLVED_CODES = round(60.0 * 65535 / 156)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _configs(fft=2048, hop=64, window="hann", channels=2):
+    kw = dict(spectrum=None, oscilloscope=None, stereometer=None, waveform=None,
+              channels=channels)
+    return (
+        JEngineConfig(spectrogram=JSpecConfig(fft_size=fft, hop_size=hop, window=JWindowKind(window),
+                                              use_reassignment=False), **kw),
+        EngineConfig(spectrogram=SpectrogramConfig(fft_size=fft, hop_size=hop, window=WindowKind(window),
+                                                   use_reassignment=False), **kw),
+    )
+
+
+def _audio(s, hops, channels, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(hops * 256) / 48_000.0
+    freqs = rng.uniform(60.0, 6000.0, size=(s, 1, 1))
+    audio = 0.25 * np.sin(2 * np.pi * freqs * t[None, :, None]) + 0.05 * rng.standard_normal(
+        (s, hops * 256, channels)
+    )
+    audio *= rng.uniform(0.01, 1.0, size=(s, 1, channels))
+    return audio.astype(np.float32)
+
+
+def assert_snapshots_match(jsnaps, tsnaps, hop):
+    jl, tl = jsnaps["loudness"], tsnaps["loudness"]
+    for field in jl._fields:
+        ours = getattr(tl, field).cpu().numpy()
+        ref = np.asarray(getattr(jl, field))
+        assert ours.shape == ref.shape, (hop, field)
+        tol = 1e-3 if field == "true_peak_db" else 0.01
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=tol, err_msg=f"hop {hop} {field}")
+    jc, tc = jsnaps["spectrogram"], tsnaps["spectrogram"]
+    valid = np.asarray(jc.valid)
+    np.testing.assert_array_equal(tc.valid.cpu().numpy(), valid, err_msg=f"hop {hop}")
+    ref = np.asarray(jc.codes).astype(np.int64)
+    ours = tc.codes.cpu().numpy().astype(np.int64)
+    assert tc.codes.dtype == torch.uint16 and ours.shape == ref.shape
+    held = valid[..., None] & (ref >= ref.max(axis=-1, keepdims=True) - RESOLVED_CODES)
+    worst = int((np.abs(ours - ref) * held).max())
+    assert worst <= 2, f"hop {hop}: codes differ by {worst}"
+
+
+def _run_sessions(jcfg, tcfg, audio, resets=None, jmeta=None, tmeta=None):
+    s = audio.shape[0]
+    jsess = japi.AnalysisSession(JMeterEngine(jcfg), s, meta=jmeta)
+    tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu", meta=tmeta)
+    for i in range(audio.shape[1] // 256):
+        blk = audio[:, i * 256 : (i + 1) * 256]
+        reset = None if resets is None else resets.get(i)
+        assert_snapshots_match(jsess.feed(blk, reset), tsess.feed(blk, reset), i)
+    return jsess, tsess
+
+
+def test_flagship_analyze_matches():
+    jcfg, tcfg = _configs()
+    audio = _audio(4, 96, 2, seed=31)
+    jout = japi.analyze(audio, config=jcfg)
+    tout = tapi.analyze(audio, config=tcfg, device="cpu")
+    assert len(jout) == len(tout) == 96
+    for i, (js, ts) in enumerate(zip(jout, tout)):
+        assert ts["loudness"].integrated_lufs.device.type == "cpu"
+        assert_snapshots_match(js, ts, i)
+    assert float(tout[-1]["loudness"].integrated_lufs.min()) > -70.0
+
+
+def test_flagship_session_with_reset_matches():
+    jcfg, tcfg = _configs()
+    audio = _audio(4, 96, 2, seed=32)
+    reset = np.array([False, True, False, True])
+    _run_sessions(jcfg, tcfg, audio, resets={40: reset})
+
+
+def test_reduced_surround_config_matches():
+    """fft 256, hop 32 (8 columns a hop), Blackman-Harris, 8 channels
+    padded from a 5.1 layout (LFE weight 0, surrounds 1.41)."""
+    jcfg, tcfg = _configs(fft=256, hop=32, window="blackman_harris", channels=8)
+    s = 3
+    audio = _audio(s, 60, 8, seed=33)
+    audio[:, :, 6:] = 0.0
+    jmeta = JStreamMeta.default(s, channels=6, pad_channels=8)
+    tmeta = StreamMeta.default(s, channels=6, pad_channels=8)
+    np.testing.assert_array_equal(tmeta.weights.numpy(), np.asarray(jmeta.weights))
+    _run_sessions(jcfg, tcfg, audio, resets={25: np.array([False, False, True])},
+                  jmeta=jmeta, tmeta=tmeta)
+
+
+def test_carry_from_jax_continues():
+    """JAX runs 50 hops; both packages continue 30 more from its carry."""
+    jcfg, tcfg = _configs()
+    s = 3
+    audio = _audio(s, 80, 2, seed=34)
+    jsess = japi.AnalysisSession(JMeterEngine(jcfg), s)
+    for i in range(50):
+        jsess.feed(audio[:, i * 256 : (i + 1) * 256])
+    carry_np = jax.device_get(jsess.carry)
+    tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu")
+    tsess.carry = convert.carry_from_jax(carry_np, tsess.engine)
+
+    back = convert.carry_to_numpy(tsess.carry)
+    flat_j = jax.tree_util.tree_leaves_with_path(carry_np)
+    flat_t = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_j) == len(flat_t)
+    for path, leaf in flat_j:
+        ours = flat_t[path]
+        assert ours.dtype == np.asarray(leaf).dtype and ours.shape == np.shape(leaf), path
+        np.testing.assert_array_equal(ours, np.asarray(leaf), err_msg=str(path))
+
+    for i in range(50, 80):
+        blk = audio[:, i * 256 : (i + 1) * 256]
+        assert_snapshots_match(jsess.feed(blk), tsess.feed(blk), i)
+
+
+def test_unported_analyzers_refuse():
+    with pytest.raises(NotImplementedError, match="not ported"):
+        MeterEngine(EngineConfig())
+    with pytest.raises(NotImplementedError, match="reassigned"):
+        MeterEngine(EngineConfig(spectrum=None, oscilloscope=None, stereometer=None, waveform=None))
+    _, tcfg = _configs()
+    assert MeterEngine(tcfg).config.spectrogram.sample_rate == 48_000.0
+
+
+def test_configs_share_fields_and_defaults():
+    """A settings dict means the same thing in both packages."""
+    import dataclasses
+
+    from openmeters_tpu.analyzers import oscilloscope as jo
+    from openmeters_tpu.analyzers import spectrum as jsp
+    from openmeters_tpu.analyzers import stereometer as jst
+    from openmeters_tpu.analyzers import waveform as jw
+    from openmeters_tpu.analyzers.loudness import LoudnessConfig as JLoud
+    from openmeters_tpu_torch.analyzers import oscilloscope as to
+    from openmeters_tpu_torch.analyzers import spectrum as tsp
+    from openmeters_tpu_torch.analyzers import stereometer as tst
+    from openmeters_tpu_torch.analyzers import waveform as tw
+    from openmeters_tpu_torch.analyzers.loudness import LoudnessConfig as TLoud
+
+    def as_plain(cfg):
+        out = {}
+        for f in dataclasses.fields(cfg):
+            v = getattr(cfg, f.name)
+            out[f.name] = as_plain(v) if dataclasses.is_dataclass(v) else getattr(v, "value", v)
+        return out
+
+    pairs = [
+        (JEngineConfig(), EngineConfig()), (JLoud(), TLoud()), (JSpecConfig(), SpectrogramConfig()),
+        (jsp.SpectrumConfig(), tsp.SpectrumConfig()), (jo.OscilloscopeConfig(), to.OscilloscopeConfig()),
+        (jst.StereometerConfig(), tst.StereometerConfig()), (jw.WaveformConfig(), tw.WaveformConfig()),
+    ]
+    for jcfg, tcfg in pairs:
+        assert as_plain(tcfg) == as_plain(jcfg), type(tcfg).__name__
+    assert as_plain(EngineConfig().resolve()) == as_plain(JEngineConfig().resolve())
+
+
+def test_cuda_device_is_explicit():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    _, tcfg = _configs()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tapi.analyze(np.zeros((1, 256, 2), np.float32), config=tcfg, device="cuda")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, json, numpy as np\n"
+        "from openmeters_tpu_torch import api, EngineConfig\n"
+        "from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig\n"
+        "cfg = EngineConfig(spectrogram=SpectrogramConfig(fft_size=256, hop_size=64,\n"
+        "                                                  use_reassignment=False),\n"
+        "                   spectrum=None, oscilloscope=None, stereometer=None, waveform=None)\n"
+        "out = api.analyze(np.zeros((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
+        "        or m == 'openmeters_tpu']\n"
+        "print(json.dumps({'hops': len(out), 'mods': mods}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"hops": 8, "mods": []}

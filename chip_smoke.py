@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's flagship meter path on one CUDA card.
+"""Drive the PyTorch port's meter paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,14 +13,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
 4. the flagship engine through the public API on the card against the
    same on the CPU (S=32, 200 hops, two streams reset at hop 90);
 5. the flagship engine at S=8192 stereo streams: 40 warm-up hops, then 200
-   timed hops with every output consumed, counting kernel launches.
+   timed hops with every output consumed, counting kernel launches, and a
+   profile of 20 more;
+6. the ``reassigned_sliding_hop`` kernel against its plain version at the
+   default reassigned shape (S=8192, n 2048, hop 64, 4 columns, 1025 bins,
+   Hann) and a small Blackman-Harris zero-padded shape (stencil reach 6),
+   for ready in {0, 1, cols}, plus both versions' times;
+7. the ``reassigned_columns`` kernel against its plain version at n 8192
+   (h 16384; 1024 frames, and the main path's 8192), n 2048 and n 512,
+   plus both versions' times;
+8. the reassigned slice on the card against the CPU: loudness plus the
+   default reassigned 2048/64 spectrogram (S=32, 200 hops, two streams
+   reset at hop 90), then the per-column 8192/512 config (S=8, 160 hops);
+9. the reassigned slice at S=8192 stereo streams, timed and profiled as in
+   phase 5; then the 8192/512 config at S=8192 (80 warm-up hops, its
+   window first fills at hop 64), counting the per-column kernel's
+   launches (one on each hop with a ready column, every second hop).
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
 stereometer=None, waveform=None, channels=2)``: BS.1770 loudness plus the
-classic 2048/64 Hann spectrogram.  Before the last line it prints one JSON
-object with each kernel's launches, error and times, and the card's
-``nvidia-smi`` name and power limit; the last line is
+classic 2048/64 Hann spectrogram.  The reassigned slice is the same with
+the default ``SpectrogramConfig()`` (reassigned 2048/64 Hann).  Before the
+last line it prints one JSON object with each kernel's launches, error and
+times, and the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -276,17 +292,14 @@ def phase5_flagship(dev) -> int:
     check(bool((lo.integrated_lufs > engine.config.loudness.floor_db).all()), "integrated loudness at the floor")
     check(bool(snaps["spectrogram"].valid.all()), "spectrogram columns not valid")
 
-    try:
-        profile_hops(session, blocks, consume, ms)
-    except Exception as e:  # the profile is a diagnostic, not a phase
-        log(f"phase 5 profile not taken: {type(e).__name__}: {e}")
+    profile_hops("phase 5", session, blocks, consume, ms)
     return launches
 
 
-def profile_hops(session, blocks, consume, ms_per_hop: float, hops: int = 20) -> None:
+def profile_hops(label: str, session, blocks, consume, ms_per_hop: float, hops: int = 20) -> None:
     """Kernel time by name over a short steady window, into chiprun_out/,
     and the device's busy share: kernel time per hop over the unprofiled
-    hop time."""
+    hop time.  A profile that records no device time fails the phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -296,20 +309,353 @@ def profile_hops(session, blocks, consume, ms_per_hop: float, hops: int = 20) ->
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(table)
+    (OUT_DIR / f"chip_smoke_profile_{label.replace(' ', '')}.txt").write_text(table)
     busy_us = sum(
         getattr(e, "device_time_total", 0.0)
         for e in prof.events()
         if e.device_type == DeviceType.CUDA
     )
     busy_ms = busy_us / 1e3 / hops
+    check(busy_ms > 0.0, f"{label}: the profile recorded no device time")
     log(
-        f"phase 5 kernel time {busy_ms:.4f} ms/hop of {ms_per_hop:.4f} ms/hop: device busy "
+        f"{label} kernel time {busy_ms:.4f} ms/hop of {ms_per_hop:.4f} ms/hop: device busy "
         f"{100 * busy_ms / ms_per_hop:.1f} %, idle {100 * (1 - busy_ms / ms_per_hop):.1f} % [{card_line()}]"
     )
-    log(f"phase 5 profile over {hops} hops (top rows; full table in chiprun_out/):")
+    log(f"{label} profile over {hops} hops (top rows; full table in chiprun_out/):")
     for line in table.splitlines()[:16]:
         log("  " + line)
+
+
+# -- the reassigned spectrogram ---------------------------------------------
+
+
+def reassigned_config(fft: int = 2048, hop: int = 64):
+    from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig
+    from openmeters_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(
+        spectrogram=SpectrogramConfig(fft_size=fft, hop_size=hop),
+        spectrum=None, oscilloscope=None, stereometer=None, waveform=None,
+        channels=2,
+    )
+
+
+def reassigned_errors(ours, ref, valid, *, drift: bool, label: str):
+    """Largest errors of ``(freq, time, power)`` ``[..., bins]`` against
+    ``ref`` at valid bins within 60 dB of their column's peak, checked
+    against the bars of ``openmeters_tpu_torch/utils/parity.py`` (with
+    ``drift`` where each side slid its own states over a run).  Returns
+    ``(errors, held mask)``."""
+    from openmeters_tpu_torch.utils.parity import check_reassigned
+    from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
+
+    err, held = errors_of(ours, ref, valid, drift=drift)
+    check_reassigned(err, label)
+    return err, held
+
+
+def fmt_errors(err: dict) -> str:
+    return (
+        f"max |d freq| {err['freq_hz']:.3e} Hz, |d time| {err['time_hops']:.3e} hop "
+        f"({err['time_over_bar']:.2f} of its bar; {err['time_at_peak']:.2e} at the peak), "
+        f"|d power|/power {err['power_rel']:.3e}"
+    )
+
+
+def analytic_frames(s: int, length: int, gen, dev):
+    """``[2, s, length]`` float32: per stream two sines (0.4 and 0.1) plus
+    faint noise, and their Hilbert transform (minus cosines) plus faint
+    noise, made on the card from ``gen``."""
+    t = torch.arange(length, device=dev, dtype=torch.float64) / 48_000.0
+    f0 = torch.rand((2, s, 1), generator=gen, device=dev, dtype=torch.float64) * 15_800.0 + 200.0
+    ph = torch.rand((2, s, 1), generator=gen, device=dev, dtype=torch.float64) * 2 * np.pi
+    amp = torch.tensor([0.4, 0.1], device=dev, dtype=torch.float64).view(2, 1, 1)
+    arg = 2 * np.pi * f0 * t + ph
+    x = torch.stack([(amp * torch.sin(arg)).sum(0), -(amp * torch.cos(arg)).sum(0)])
+    noise = torch.randn(x.shape, generator=gen, device=dev, dtype=torch.float64)
+    return (x + 0.005 * noise).float()
+
+
+def phase6_reassigned_hop(dev) -> dict:
+    from openmeters_tpu_torch.ops.reassigned_hop import (
+        reassigned_sliding_hop,
+        reassigned_sliding_hop_reference,
+    )
+    from openmeters_tpu_torch.ops.sliding_reassigned import SlidingReassigned
+    from openmeters_tpu_torch.utils.windows import WindowKind
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    shapes = [
+        ("default", SlidingReassigned(2048, 64, 256, WindowKind.HANN, 48_000.0), FLAGSHIP_S),
+        ("blackman-harris zpf 2",
+         SlidingReassigned(512, 64, 256, WindowKind.BLACKMAN_HARRIS, 48_000.0, zpf=2), 37),
+    ]
+    result = {}
+    for label, sl, s in shapes:
+        n, hop, cols = sl.n, sl.hop, sl.cols_cap
+        x = analytic_frames(s, n + cols * hop, gen, dev)
+        ramp = torch.arange(n, device=dev, dtype=torch.float64) - (n - 1) * 0.5
+        crops = torch.stack([x[0, :, :n], x[1, :, :n], x[0, :, :n] * ramp, x[1, :, :n] * ramp])
+        spec = torch.fft.rfft(crops.double(), n=sl.pfft)
+        states = tuple(
+            part.float().contiguous() for i in range(4) for part in (spec[i].real, spec[i].imag)
+        )
+        del crops, spec
+
+        def deltas(sig):
+            return torch.stack(
+                [torch.cat([sig[:, n + k * hop : n + (k + 1) * hop], sig[:, k * hop : (k + 1) * hop]], -1)
+                 for k in range(cols)],
+                dim=1,
+            ).contiguous()
+
+        dx, dh = deltas(x[0]), deltas(x[1])
+        t = sl._tensors(dev)
+        args = (states, dx, dh, t["upd"], t["rot_r"], t["rot_i"], t["normq"], t["freqb"])
+        kw = dict(n=n, zpf=sl.zpf, coeffs=sl.coeffs(), inv_2pi=48_000.0 / (2.0 * np.pi),
+                  inv_hop=1.0 / hop, latency_hops=sl.center / hop)
+        for ready in sorted({0, 1, cols}):
+            kst, kf, kt, kp = reassigned_sliding_hop(ready, *args, **kw)
+            rst, rf, rt, rp = reassigned_sliding_hop_reference(ready, *args, **kw)
+            torch.cuda.synchronize()
+            state_err = abs_err = 0.0
+            for i in range(0, 8, 2):  # each complex state against its row maximum
+                scale = torch.clamp_min(torch.hypot(rst[i], rst[i + 1]).amax(1, keepdim=True), 1e-30)
+                for j in (i, i + 1):
+                    d = (kst[j] - rst[j]).abs()
+                    state_err = max(state_err, float((d / scale).max()))
+                    abs_err = max(abs_err, float(d.max()))
+            err, _ = reassigned_errors(
+                (kf, kt, kp), (rf, rt, rp), torch.ones((s, cols), dtype=torch.bool, device=dev),
+                drift=False, label=f"phase 6 {label} ready={ready}",
+            )
+            log(
+                f"phase 6 {label} S={s} n={n} hop={hop} cols={cols} bins={sl.bins} ready={ready}: "
+                f"states max|d|/rowmax {state_err:.3e} (abs {abs_err:.3e}); {fmt_errors(err)}"
+            )
+            check(state_err <= 1e-5, f"{label} ready={ready}: state error {state_err}")
+            if ready == 0:
+                check(all(torch.equal(a, b) for a, b in zip(kst, states)), "held states changed")
+            if label == "default" and ready == cols:
+                result = {"max_abs_err": abs_err, "max_rel_state_err": state_err, **err}
+
+        if label == "default":
+            reps = 10
+            kern = lambda: reassigned_sliding_hop(cols, *args, **kw)  # noqa: E731
+            plain = lambda: reassigned_sliding_hop_reference(cols, *args, **kw)  # noqa: E731
+            p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
+            result["ms"] = (k1 + k2) / 2
+            result["plain_ms"] = (p1 + p2) / 2
+            log(
+                f"phase 6 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
+                f"[{card_line()}]"
+            )
+        del x, states, dx, dh, args
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase7_reassigned_columns(dev) -> dict:
+    from openmeters_tpu_torch.ops.reassigned_columns import (
+        reassigned_columns,
+        reassigned_columns_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def compare(frames, kw) -> dict:
+        rows = frames.shape[0]
+        out = reassigned_columns(frames, **kw)
+        ref = reassigned_columns_reference(frames, **kw)
+        torch.cuda.synchronize()
+        err, held = reassigned_errors(
+            out, ref, torch.ones((rows,), dtype=torch.bool, device=dev), drift=False,
+            label=f"phase 7 n={kw['n']} rows={rows}",
+        )
+        log(
+            f"phase 7 n={kw['n']} h={kw['h']} rows={rows} hop={kw['hop']}: {fmt_errors(err)}; "
+            f"max |d power| {err['power_abs_all']:.3e} over all bins "
+            f"({float(held.float().mean()):.3f} of bins held)"
+        )
+        return err
+
+    result = {}
+    for n, hop in ((8192, 512), (2048, 512), (512, 256)):
+        h, rows = 2 * n, 1024
+        frames = analytic_frames(rows, h, gen, dev)[0].contiguous()
+        kw = dict(n=n, h=h, coeffs=(0.5, -0.5), sample_rate=48_000.0, hop=hop)
+        compare(frames, kw)
+        if n == 8192:
+            # the main path's shape: one 16384-sample frame per stream at S=8192
+            frames = analytic_frames(FLAGSHIP_S, h, gen, dev)[0].contiguous()
+            err = compare(frames, kw)
+            result = {"max_abs_err": err["power_abs_all"], **err}
+            kern = lambda: reassigned_columns(frames, **kw)  # noqa: E731
+            plain = lambda: reassigned_columns_reference(frames, **kw)  # noqa: E731
+            p1, k1, k2, p2 = (time_cuda(f, 5) for f in (plain, kern, kern, plain))
+            result["ms"] = (k1 + k2) / 2
+            result["plain_ms"] = (p1 + p2) / 2
+            log(
+                f"phase 7 timing at {FLAGSHIP_S} frames, n={n}: kernel {k1:.4f}/{k2:.4f} ms, "
+                f"plain {p1:.4f}/{p2:.4f} ms [{card_line()}]"
+            )
+        else:
+            k1 = time_cuda(lambda: reassigned_columns(frames, **kw), 10)  # noqa: B023
+            p1 = time_cuda(lambda: reassigned_columns_reference(frames, **kw), 10)  # noqa: B023
+            log(f"phase 7 timing at {rows} frames, n={n}: kernel {k1:.4f} ms, plain {p1:.4f} ms "
+                f"[{card_line()}]")
+        del frames
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase8_reassigned_slice(dev) -> None:
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import MeterEngine
+
+    b = 256
+    for fft, hop, s, hops, reset_hop in ((2048, 64, 32, 200, 90), (8192, 512, 8, 160, None)):
+        rng = np.random.default_rng(SEED + fft)
+        t = np.arange(hops * b) / 48_000.0
+        freqs = rng.uniform(40.0, 8000.0, size=(s, 1, 1))
+        audio = 0.3 * np.sin(2 * np.pi * freqs * t[None, :, None]) + 0.005 * rng.standard_normal((s, hops * b, 2))
+        audio[3] *= 1e-3  # a quiet stream
+        audio = audio.astype(np.float32)
+        reset = np.zeros((s,), bool)
+        reset[[5, 17] if s > 17 else [5]] = True
+
+        engine = MeterEngine(reassigned_config(fft, hop))
+        sliding = engine.analyzers["spectrogram"].use_sliding_reassigned
+        sessions = {d: AnalysisSession(engine, s, d) for d in (dev, "cpu")}
+        worst = {"freq_hz": 0.0, "time_hops": 0.0, "time_over_bar": 0.0, "power_rel": 0.0,
+                 "time_at_peak": 0.0, "lufs": 0.0, "true_peak": 0.0}
+        pv_diff = pv_total = columns = 0
+        for i in range(hops):
+            blk = audio[:, i * b : (i + 1) * b]
+            r = reset if i == reset_hop else None
+            snaps = {d: sess.feed(blk, r) for d, sess in sessions.items()}
+            ga, ca = snaps[dev]["spectrogram"], snaps["cpu"]["spectrogram"]
+            vc = ca.valid
+            check(bool(torch.equal(ga.valid.cpu(), vc)), f"{fft}/{hop} hop {i}: valid masks differ")
+            columns += int(vc.sum())
+            err, held = reassigned_errors(
+                (ga.freq_hz.cpu(), ga.time_offset.cpu(), ga.power.cpu()),
+                (ca.freq_hz, ca.time_offset, ca.power), vc, drift=sliding,
+                label=f"phase 8 {fft}/{hop} hop {i}",
+            )
+            for key in err:
+                if key in worst:
+                    worst[key] = max(worst[key], err[key])
+            pv = ga.point_valid.cpu() != ca.point_valid
+            check(not bool((pv & held).any()), f"{fft}/{hop} hop {i}: point_valid differs at held bins")
+            pv_diff += int(pv.sum())
+            pv_total += int(vc.sum()) * pv.shape[-1]
+            la, lc = snaps[dev]["loudness"], snaps["cpu"]["loudness"]
+            for f in la._fields:
+                e = float((getattr(la, f).cpu() - getattr(lc, f)).abs().max())
+                key = "true_peak" if f == "true_peak_db" else "lufs"
+                worst[key] = max(worst[key], e)
+        log(
+            f"phase 8 card vs cpu, reassigned {fft}/{hop}, S={s}, {hops} hops"
+            f"{f', reset at hop {reset_hop}' if reset_hop is not None else ''}: {columns} valid columns; "
+            f"{fmt_errors(worst)}; point_valid differs at {pv_diff / max(pv_total, 1):.2e} of valid bins "
+            f"(none held); loudness max |d| {worst['lufs']:.3e} LU/dB, true peak {worst['true_peak']:.3e} dB"
+        )
+        check(columns > 0, f"{fft}/{hop}: no valid column")
+        check(worst["lufs"] <= 0.01, f"loudness differs by {worst['lufs']}")
+        check(worst["true_peak"] <= 1e-3, f"true peak differs by {worst['true_peak']}")
+
+
+def timed_reassigned_run(label: str, dev, fft: int, hop: int, warmup: int, counter, expect: int) -> dict:
+    """``warmup`` then ``TIMED_HOPS`` hops of loudness plus the reassigned
+    ``fft``/``hop`` spectrogram at S=8192 stereo streams, every output leaf
+    folded into a device scalar; ``counter`` must count ``expect`` kernel
+    launches over the timed hops.  Then a profile of 20 more hops."""
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import MeterEngine
+
+    s, b = FLAGSHIP_S, 256
+    engine = MeterEngine(reassigned_config(fft, hop))
+    torch.cuda.reset_peak_memory_stats()
+    session = AnalysisSession(engine, s, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + fft)
+    bank = 16  # distinct blocks made on the card, fed in turn
+    t = torch.arange(bank * b, device=dev, dtype=torch.float32) / 48_000.0
+    freqs = torch.rand((s, 1, 1), generator=gen, device=dev) * 4000.0 + 50.0
+    audio = 0.3 * torch.sin(2 * torch.pi * freqs * t[None, :, None]) + 0.05 * torch.randn(
+        (s, bank * b, 2), generator=gen, device=dev
+    )
+    blocks = [audio[:, i * b : (i + 1) * b].contiguous() for i in range(bank)]
+    del audio
+
+    sink = torch.zeros((), device=dev, dtype=torch.float64)
+    valid_cols = torch.zeros((), device=dev, dtype=torch.int64)
+
+    def consume(snaps):
+        # fold every output leaf into one device scalar: nothing is dropped,
+        # and a non-finite value anywhere (every point is finite by
+        # construction, valid or not) leaves the sum non-finite
+        nonlocal sink, valid_cols
+        lo, sg = snaps["loudness"], snaps["spectrogram"]
+        acc = sum(getattr(lo, f).sum(dtype=torch.float64) for f in lo._fields)
+        for f in ("freq_hz", "time_offset", "power", "point_valid", "valid"):
+            acc = acc + getattr(sg, f).sum(dtype=torch.float64)
+        sink = sink + acc
+        valid_cols = valid_cols + sg.valid.sum()
+
+    for i in range(warmup):
+        consume(session.feed(blocks[i % bank]))
+    torch.cuda.synchronize()
+    valid_cols.zero_()
+
+    counter.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIMED_HOPS):
+        snaps = session.feed(blocks[(warmup + i) % bank])
+        consume(snaps)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+
+    ms = start.elapsed_time(stop) / TIMED_HOPS
+    realtime = s * (b / 48_000.0) / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    log(
+        f"{label} reassigned {fft}/{hop} S={s}: {ms:.4f} ms/hop (CUDA events; host wall "
+        f"{1e3 * wall / TIMED_HOPS:.4f} ms/hop), {realtime:.1f} streams realtime, peak memory "
+        f"{peak / 2**30:.3f} GiB, {counter.__name__} launched {launches} times, "
+        f"{int(valid_cols)} valid columns [{card_line()}]"
+    )
+    check(launches == expect, f"{counter.__name__} launched {launches} times, want {expect}")
+    check(bool(torch.isfinite(sink)), "non-finite output")
+    check(int(valid_cols) > 0, "no valid spectrogram column")
+    lo = snaps["loudness"]
+    for f in lo._fields:
+        check(bool(torch.isfinite(getattr(lo, f)).all()), f"{f} not finite")
+    check(bool((lo.integrated_lufs > engine.config.loudness.floor_db).all()), "integrated loudness at the floor")
+    profile_hops(label, session, blocks, consume, ms)
+    result = {"ms_per_hop": ms, "launches": launches, "peak_gib": peak / 2**30}
+    del session, blocks
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase9_reassigned_s8192(dev) -> tuple[int, int]:
+    from openmeters_tpu_torch.ops.reassigned_columns import reassigned_columns
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+
+    sliding = timed_reassigned_run(
+        "phase 9a", dev, 2048, 64, WARMUP_HOPS, reassigned_sliding_hop, TIMED_HOPS
+    )
+    # the 16384-sample window first fills at hop 64; one column every second hop
+    columns = timed_reassigned_run(
+        "phase 9b", dev, 8192, 512, 80, reassigned_columns, TIMED_HOPS // 2
+    )
+    return sliding["launches"], columns["launches"]
 
 
 def main() -> int:
@@ -329,24 +675,32 @@ def main() -> int:
     _build.load_library()
     log(f"phase 2 kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "smem")):
             log("  ptxas: " + line.strip())
 
     kernel = phase3_kernel(dev)
     phase4_slice(dev)
     launches = phase5_flagship(dev)
+    hop_kernel = phase6_reassigned_hop(dev)
+    col_kernel = phase7_reassigned_columns(dev)
+    phase8_reassigned_slice(dev)
+    hop_launches, col_launches = phase9_reassigned_s8192(dev)
+
+    def entry(name, source, replaces, n, k):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        }
 
     print(json.dumps({
-        "kernels": [{
-            "name": "sliding_hop",
-            "route": "cuda",
-            "source": "openmeters_tpu_torch/csrc/sliding_hop.cu",
-            "replaces": "openmeters_tpu/ops/pallas_sliding.py:381",
-            "launches": launches,
-            "max_abs_err": kernel["max_abs_err"],
-            "ms": kernel["ms"],
-            "plain_ms": kernel["plain_ms"],
-        }],
+        "kernels": [
+            entry("sliding_hop", "openmeters_tpu_torch/csrc/sliding_hop.cu",
+                  "openmeters_tpu/ops/pallas_sliding.py:381", launches, kernel),
+            entry("reassigned_sliding_hop", "openmeters_tpu_torch/csrc/reassigned_hop.cu",
+                  "openmeters_tpu/ops/pallas_sliding_reassigned.py:229", hop_launches, hop_kernel),
+            entry("reassigned_columns", "openmeters_tpu_torch/csrc/reassigned_columns.cu",
+                  "openmeters_tpu/ops/pallas_reassigned.py:363", col_launches, col_kernel),
+        ],
     }))
     print(card_line())
     print(json.dumps({

@@ -1,6 +1,7 @@
 """Build the package's CUDA sources with ``nvcc`` at first use.
 
-Every ``csrc/*.cu`` compiles into one shared library with a plain C
+Every ``csrc/*.cu`` compiles to an object, one ``nvcc`` per source, all
+started together; the objects link into one shared library with a plain C
 interface, loaded with :mod:`ctypes`.  The library lands in
 ``build/openmeters_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an unchanged tree builds once and a changed one
@@ -24,7 +25,6 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -66,20 +66,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-    cmd = [
-        find_nvcc(),
-        *NVCC_FLAGS,
-        "-o",
-        str(tmp),
-        *[str(p) for p in sorted(CSRC.glob("*.cu"))],
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+    tmp = out.parent / f"{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, NVCC_FLAGS[0], "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -100,6 +113,26 @@ def load_library() -> ctypes.CDLL:
                 p,  # stream
             ]
             lib.sliding_hop_launch.restype = ctypes.c_int
+            lib.reassigned_hop_launch.argtypes = [
+                *[p] * 16,  # eight states in, eight out
+                p, p, p,  # dx dh upd
+                p, p, p, p,  # rot_r rot_i normq freqb
+                p, p, p,  # freq time power
+                i, i, i, i, i, i, i,  # S cols hop bins ready zpf nterms
+                f, f, f, f, f, f, f,  # a0 halves[3] gs[3]
+                f, f, f,  # inv_2pi inv_hop latency_hops
+                p,  # stream
+            ]
+            lib.reassigned_hop_launch.restype = ctypes.c_int
+            lib.reassigned_columns_launch.argtypes = [
+                p, p, p,  # frames twiddles norm
+                p, p, p,  # freq time power
+                i, i, i,  # rows n nterms
+                f, f, f, f, f, f, f,  # a0 halves[3] gs[3]
+                f, f, f, f,  # bin_hz inv_2pi inv_hop latency_hops
+                p,  # stream
+            ]
+            lib.reassigned_columns_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -36,10 +36,14 @@ def window_coefficients(kind: WindowKind, length: int) -> np.ndarray:
         return np.zeros((0,), np.float32)
     if length == 1 or kind is WindowKind.RECTANGULAR:
         return np.ones((length,), np.float32)
-    n = np.arange(length, dtype=np.float64)
-    phi = n * (2.0 * np.pi / length)
+    return cosine_sum_window(kind.cosine_coefficients, length)
+
+
+def cosine_sum_window(coeffs: tuple, length: int) -> np.ndarray:
+    """``sum_k coeffs[k] cos(2 pi k i / length)``, float32."""
+    phi = np.arange(length, dtype=np.float64) * (2.0 * np.pi / length)
     out = np.zeros((length,), np.float64)
-    for k, c in enumerate(kind.cosine_coefficients):
+    for k, c in enumerate(coeffs):
         out += c * np.cos(phi * k)
     return out.astype(np.float32)
 
@@ -61,3 +65,46 @@ def fft_bin_normalization(window: np.ndarray, fft_size: int) -> np.ndarray:
     if fft_size % 2 == 0 and bins > 1:
         norms[-1] = dc
     return norms
+
+
+# -- reassigned-spectrogram window helpers (``analyzers/spectrogram.py``) ---
+
+
+def hilbert_len_for(window_size: int) -> int:
+    """``(2 * window).next_power_of_two()``: the analytic-signal length."""
+    n = max(window_size * 2, 2)
+    return 1 << (n - 1).bit_length()
+
+
+def derivative_window(window: np.ndarray) -> np.ndarray:
+    """Spectral-derivative window dh/dn via FFT."""
+    n = len(window)
+    if n <= 1:
+        return np.zeros(n, np.float32)
+    spec = np.fft.fft(window.astype(np.float64))
+    k = np.arange(n)
+    omega = (2.0 * np.pi / n) * np.where(k > n // 2, k - n, k).astype(np.float64)
+    omega[0] = 0.0
+    if n % 2 == 0:
+        omega[n // 2] = 0.0
+    dspec = 1j * omega * spec
+    dspec[0] = 0.0
+    if n % 2 == 0:
+        dspec[n // 2] = 0.0
+    return np.real(np.fft.ifft(dspec)).astype(np.float32)
+
+
+def time_weighted_window(window: np.ndarray) -> np.ndarray:
+    """``(i - center) * w[i]`` with ``center = (len - 1) / 2``."""
+    center = (len(window) - 1) * 0.5
+    return ((np.arange(len(window)) - center) * window.astype(np.float64)).astype(
+        np.float32
+    )
+
+
+def reassigned_power_scale(window: np.ndarray, fft_size: int) -> float:
+    """Coherent-gain/ENBW correction for splat accumulation:
+    ``sum(w)^2 / (fft_size * sum(w^2))``."""
+    w = window.astype(np.float64)
+    s, ss = np.sum(w), np.sum(w * w)
+    return float(s * s / (fft_size * ss))

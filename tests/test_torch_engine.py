@@ -150,8 +150,14 @@ def test_carry_from_jax_continues():
 def test_unported_analyzers_refuse():
     with pytest.raises(NotImplementedError, match="not ported"):
         MeterEngine(EngineConfig())
-    with pytest.raises(NotImplementedError, match="reassigned"):
-        MeterEngine(EngineConfig(spectrum=None, oscilloscope=None, stereometer=None, waveform=None))
+    pending = dict(spectrum=None, oscilloscope=None, stereometer=None, waveform=None)
+    for name in pending:  # each pending analyzer refuses on its own
+        with pytest.raises(NotImplementedError, match=f"the {name} analyzer is not ported"):
+            MeterEngine(EngineConfig(**{k: v for k, v in pending.items() if k != name}))
+    # the default (reassigned) spectrogram builds
+    engine = MeterEngine(EngineConfig(**pending))
+    assert engine.config.spectrogram.use_reassignment
+    assert set(engine.init(1, device="meta")["spectrogram"]) == {"fb", "srs"}
     _, tcfg = _configs()
     assert MeterEngine(tcfg).config.spectrogram.sample_rate == 48_000.0
 
@@ -205,6 +211,9 @@ def test_port_imports_no_jax():
         "                                                  use_reassignment=False),\n"
         "                   spectrum=None, oscilloscope=None, stereometer=None, waveform=None)\n"
         "out = api.analyze(np.zeros((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
+        "cfg = EngineConfig(spectrum=None, oscilloscope=None, stereometer=None, waveform=None)\n"
+        "re = api.analyze(np.ones((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
+        "assert type(re[-1]['spectrogram']).__name__ == 'ReassignedColumns'\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
         "        or m == 'openmeters_tpu']\n"
         "print(json.dumps({'hops': len(out), 'mods': mods}))\n"

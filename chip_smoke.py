@@ -28,21 +28,44 @@ Phases, in order; any failed check raises and the script exits non-zero:
 9. the reassigned slice at S=8192 stereo streams, timed and profiled as in
    phase 5; then the 8192/512 config at S=8192 (80 warm-up hops, its
    window first fills at hop 64), counting the per-column kernel's
-   launches (one on each hop with a ready column, every second hop).
+   launches (one on each hop with a ready column, every second hop);
+10. the correlation-search kernel against its plain versions at the
+    oscilloscope's main-path shapes (S=8192, a ``[8192, 19456]`` ring,
+    template 4800, window 7200, nfft 8192, 2401 offsets): from the ring
+    (``corr_dots_sums_ring``), from given rows (``corr_dots_sums``) and
+    dots alone (``corr_dots``), plus kernel, plain and library times; then
+    from the ring at 192 kHz (S=2048, nfft 32768, its buffer in global
+    scratch);
+11. the ``window_rows`` kernel bit-exact against ``torch.gather`` at
+    ``[8192, 19456]`` into 4800 and 4802 samples and three windows a row,
+    plus the times;
+12. the oscilloscope slice on the card against the CPU (S=8, 150 hops of
+    tones, a glide, an onset and a quiet stream, two streams reset at hop
+    90; bars in ``openmeters_tpu_torch/utils/parity.py``);
+13. ``EngineConfig(spectrum=None, stereometer=None, waveform=None,
+    channels=2)`` -- loudness, the reassigned spectrogram and the
+    oscilloscope -- at S=8192 through ``AnalysisSession.feed``: 80 warm-up
+    hops (the trigger's history first fills at hop 38), 200 timed with
+    every output leaf folded into a device scalar, counting the search's
+    launches (one a hop) and ``window_rows``'s (two a hop), and a profile.
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
 stereometer=None, waveform=None, channels=2)``: BS.1770 loudness plus the
 classic 2048/64 Hann spectrogram.  The reassigned slice is the same with
 the default ``SpectrogramConfig()`` (reassigned 2048/64 Hann).  Before the
-last line it prints one JSON object with each kernel's launches, error and
-times, and the card's ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+last line it prints one JSON object with each kernel's launches on its
+main path, error, times, least possible time (``bound_ms``: the larger of
+its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this
+run's inputs) and the time of the PyTorch call or chain computing the same
+function (``library_ms``), then the card's ``nvidia-smi`` name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -61,6 +84,9 @@ SEED = 1234
 FLAGSHIP_S = 8192
 WARMUP_HOPS = 40
 TIMED_HOPS = 200
+# the H100 SXM's published peaks: HBM bytes a second, f32 (non-tensor) FLOP a second
+PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -108,6 +134,25 @@ def time_cuda(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(n: int, count: int) -> float:
+    """Operations of ``count`` complex ``n``-point FFTs, 5 n log2 n each."""
+    return 5.0 * n * math.log2(n) * count
+
+
+def bound(moved: float, flops: float) -> dict:
+    """The least time the card could take: bytes moved over its memory
+    rate, or operations over its f32 rate, whichever is larger."""
+    by_bytes = moved / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def hop_inputs(sl, s: int, ready_cols: int, gen: torch.Generator, dev):
@@ -175,9 +220,17 @@ def phase3_kernel(dev) -> dict:
             p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
+            # each delta sample times a complex update coefficient: 2 FMA a bin
+            out = sliding_hop(cols, *args, **kw)
+            result.update(bound(nbytes(*args, *out), 4.0 * s * cols * sl.hop * sl.bins))
+            # the library call: one rFFT of the hop's windowed frames
+            frames = torch.randn((s, cols, sl.fft_size), generator=gen, device=dev)
+            result["library_ms"] = time_cuda(lambda: torch.fft.rfft(frames), reps)  # noqa: B023
+            del frames, out
             log(
-                f"phase 3 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-                f"[{card_line()}]"
+                f"phase 3 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"rfft of the windowed frames {result['library_ms']:.4f} ms, bound "
+                f"{result['bound_ms']:.4f} ms ({result['bound_by']}) [{card_line()}]"
             )
     return result
 
@@ -446,13 +499,33 @@ def phase6_reassigned_hop(dev) -> dict:
             p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
+            # per delta sample of x and hx, 4 FMA a bin (U and V, re and im)
+            out = reassigned_sliding_hop(cols, *args, **kw)
+            moved = nbytes(*states, dx, dh, *args[3:], *out[0], *out[1:])
+            result.update(bound(moved, 2.0 * s * cols * 2 * (2 * hop) * 4 * sl.bins))
+            # the library call: one FFT of the hop's frames under the three windows
+            frames = torch.randn((3, s, cols, n), generator=gen, device=dev, dtype=torch.complex64)
+            result["library_ms"] = time_cuda(lambda: torch.fft.fft(frames), reps)  # noqa: B023
+            del frames, out
             log(
-                f"phase 6 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-                f"[{card_line()}]"
+                f"phase 6 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"FFT of the three windowed frames {result['library_ms']:.4f} ms, bound "
+                f"{result['bound_ms']:.4f} ms ({result['bound_by']}) [{card_line()}]"
             )
         del x, states, dx, dh, args
     torch.cuda.empty_cache()
     return result
+
+
+def columns_fft_chain(frames, n: int):
+    """The per-column transform's FFTs in f32 ``torch.fft``: the analytic
+    signal of each ``2n``-sample frame, its centre crop, U and V."""
+    h = 2 * n
+    spec = torch.fft.rfft(frames, n=h)
+    spec[..., 0] = 0.0
+    a = torch.fft.ifft(spec, n=h)[..., (h - n) // 2 : (h - n) // 2 + n]
+    ramp = torch.arange(n, device=frames.device, dtype=torch.float32) - (n - 1) * 0.5
+    return torch.fft.fft(torch.stack([a, a * ramp]))
 
 
 def phase7_reassigned_columns(dev) -> dict:
@@ -495,9 +568,17 @@ def phase7_reassigned_columns(dev) -> dict:
             p1, k1, k2, p2 = (time_cuda(f, 5) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
+            # forward and inverse h-point FFTs, then U and V at n points
+            out = reassigned_columns(frames, **kw)
+            result.update(bound(
+                nbytes(frames, *out), fft_flops(h, 2 * FLAGSHIP_S) + fft_flops(n, 2 * FLAGSHIP_S)
+            ))
+            result["library_ms"] = time_cuda(lambda: columns_fft_chain(frames, n), 5)  # noqa: B023
+            del out
             log(
                 f"phase 7 timing at {FLAGSHIP_S} frames, n={n}: kernel {k1:.4f}/{k2:.4f} ms, "
-                f"plain {p1:.4f}/{p2:.4f} ms [{card_line()}]"
+                f"plain {p1:.4f}/{p2:.4f} ms, f32 torch.fft chain {result['library_ms']:.4f} ms, "
+                f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}) [{card_line()}]"
             )
         else:
             k1 = time_cuda(lambda: reassigned_columns(frames, **kw), 10)  # noqa: B023
@@ -658,6 +739,307 @@ def phase9_reassigned_s8192(dev) -> tuple[int, int]:
     return sliding["launches"], columns["launches"]
 
 
+# -- the oscilloscope ----------------------------------------------------------
+
+OSC_LANES = 19456  # the mirrored ring: 2 x 9728 at 48 kHz
+OSC_KCAP, OSC_WCAP, OSC_NFFT, OSC_OUT = 4800, 7200, 8192, 2401
+# the same at 192 kHz: lanes, template, window, nfft, offsets
+OSC_192K = (77312, 19200, 28800, 32768, 9601)
+
+
+def search_inputs(s: int, gen, dev, lanes: int = OSC_LANES, kcap: int = OSC_KCAP) -> dict:
+    """The search's inputs as the oscilloscope hands them over: a ring of
+    noise, starts within the ring (six at the kernel's clamp edges or past
+    them), template lengths from 0.4 to 1 times the store's (1920 to 4800 at
+    48 kHz) centred in it, searches of 1 to klen/2, and the anchor shift
+    -off (in [-1440, 0] at 48 kHz)."""
+    ring = torch.randn((s, lanes), generator=gen, device=dev) * 0.3
+    starts = torch.randint(0, lanes // 2, (s,), generator=gen, device=dev, dtype=torch.int32)
+    starts[:6] = torch.tensor([0, 1, 127, 9727, 12256, lanes - 456], dtype=torch.int32, device=dev)
+    klen = torch.randint(2 * kcap // 5, kcap + 1, (s,), generator=gen, device=dev, dtype=torch.int32)
+    off = (kcap - klen) // 2
+    kidx = torch.arange(kcap, device=dev, dtype=torch.int32)
+    kmask = (kidx[None, :] >= off[:, None]) & (kidx[None, :] < (off + klen)[:, None])
+    tmpl = torch.where(kmask, torch.randn((s, kcap), generator=gen, device=dev), 0.0)
+    search = (torch.rand((s,), generator=gen, device=dev) * (klen // 2).float()).to(torch.int32) + 1
+    return {"ring": ring, "starts": starts, "tmpl": tmpl, "klen": klen,
+            "wlen": search + klen, "shift": (-off).contiguous()}
+
+
+def phase10_corr(dev) -> dict:
+    from openmeters_tpu_torch.ops import corr
+    from openmeters_tpu_torch.ops.rows import window_rows_reference
+    from openmeters_tpu_torch.utils.parity import check_corr, corr_errors
+
+    s = FLAGSHIP_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = search_inputs(s, gen, dev)
+    ring, starts, tmpl, klen, wlen, shift = (x[k] for k in ("ring", "starts", "tmpl", "klen", "wlen", "shift"))
+    work = window_rows_reference(ring, starts.long().clamp(0, OSC_LANES - OSC_WCAP), OSC_WCAP).contiguous()
+    sums_args = (klen, wlen, shift, OSC_NFFT, OSC_OUT)
+    cases = {
+        "corr_dots_sums_ring": (
+            lambda: corr.corr_dots_sums_ring(ring, starts, tmpl, *sums_args, OSC_WCAP),
+            lambda: corr.corr_dots_sums_ring_reference(ring, starts, tmpl, *sums_args, OSC_WCAP),
+        ),
+        "corr_dots_sums": (
+            lambda: corr.corr_dots_sums(work, tmpl, *sums_args),
+            lambda: corr.corr_dots_sums_reference(work, tmpl, *sums_args),
+        ),
+        "corr_dots": (
+            lambda: corr.corr_dots(work, tmpl, shift, OSC_NFFT, OSC_OUT),
+            lambda: corr.corr_dots_reference(work, tmpl, shift, OSC_NFFT, OSC_OUT),
+        ),
+    }
+    # the library chain: cuFFT and cumsum on the materialised window
+    k = torch.arange(OSC_NFFT // 2 + 1, device=dev, dtype=torch.int64)
+    ang = (2.0 * math.pi / OSC_NFFT) * torch.remainder(k[None, :] * shift.long()[:, None], OSC_NFFT).float()
+    ph = torch.polar(torch.ones_like(ang), ang)
+
+    def library_dots():
+        spec = torch.fft.rfft(work, n=OSC_NFFT) * torch.conj(torch.fft.rfft(tmpl, n=OSC_NFFT)) * ph
+        return torch.fft.irfft(spec, n=OSC_NFFT)[:, :OSC_OUT]
+
+    def library_sums():
+        return library_dots(), torch.cumsum(torch.cat([work, work * work]), dim=-1)
+
+    # one forward and one inverse complex transform a stream
+    flops = fft_flops(OSC_NFFT, 2 * s)
+    results = {}
+    for name, (kern, plain) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = corr_errors(got, ref)
+        check_corr(err, f"phase 10 {name}")
+        outs = got if isinstance(got, tuple) else (got,)
+        if name == "corr_dots":
+            moved = nbytes(work, tmpl, shift, *outs)
+        else:
+            # from the ring, only the window is read: as many bytes as ``work``
+            moved = nbytes(work, tmpl, klen, wlen, shift, *outs) + (nbytes(starts) if "ring" in name else 0)
+        p1, k1, k2, p2 = (time_cuda(f, 5) for f in (plain, kern, kern, plain))
+        lib = time_cuda(library_dots if name == "corr_dots" else library_sums, 5)
+        results[name] = {
+            "max_abs_err": max(v for key, v in err.items() if key.endswith("_abs")),
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+            **bound(moved, flops),
+        }
+        r = results[name]
+        log(
+            f"phase 10 {name} S={s} nfft {OSC_NFFT} out {OSC_OUT}: "
+            + ", ".join(f"{key} {v:.3e}" for key, v in err.items() if not key.endswith("_abs"))
+            + f" of their scale; max |d| {r['max_abs_err']:.3e}; kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, cuFFT+cumsum chain {lib:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) [{card_line()}]"
+        )
+    del x, ring, work, tmpl, ph
+    torch.cuda.empty_cache()
+
+    # 192 kHz: the buffer no longer fits shared memory and lives in scratch
+    lanes, kcap, wcap, nfft, out = OSC_192K
+    s = 2048
+    x = search_inputs(s, gen, dev, lanes, kcap)
+    args = tuple(x[k] for k in ("ring", "starts", "tmpl", "klen", "wlen", "shift")) + (nfft, out, wcap)
+    got, ref = corr.corr_dots_sums_ring(*args), corr.corr_dots_sums_ring_reference(*args)
+    torch.cuda.synchronize()
+    err = corr_errors(got, ref)
+    check_corr(err, "phase 10 corr_dots_sums_ring at 192 kHz")
+    kern = lambda: corr.corr_dots_sums_ring(*args)  # noqa: E731
+    plain = lambda: corr.corr_dots_sums_ring_reference(*args)  # noqa: E731
+    p1, k1, k2, p2 = (time_cuda(f, 3) for f in (plain, kern, kern, plain))
+    log(
+        f"phase 10 corr_dots_sums_ring at 192 kHz S={s} nfft {nfft} out {out} (global scratch): "
+        + ", ".join(f"{key} {v:.3e}" for key, v in err.items() if not key.endswith("_abs"))
+        + f" of their scale; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{card_line()}]"
+    )
+    del x, args, got, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase11_rows(dev) -> dict:
+    from openmeters_tpu_torch.ops.rows import window_rows, window_rows_reference
+
+    s, n = FLAGSHIP_S, OSC_LANES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((s, n), generator=gen, device=dev)
+    result = {}
+    for length, windows in ((4800, 0), (4802, 0), (300, 3)):
+        shape = (s,) if windows == 0 else (s, windows)
+        starts = torch.randint(-10, n + 10, shape, generator=gen, device=dev, dtype=torch.int32)
+        got = window_rows(x, starts, length)
+        ref = window_rows_reference(x, starts, length)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, ref)), f"window_rows length {length} differs from torch.gather")
+        max_abs_err = float((got - ref).abs().max())
+        st = (starts if windows else starts[:, None]).long().clamp(0, n - length)
+        idx = (st[..., None] + torch.arange(length, device=dev)).reshape(s, -1)
+        kern = lambda: window_rows(x, starts, length)  # noqa: E731, B023
+        plain = lambda: window_rows_reference(x, starts, length)  # noqa: E731, B023
+        p1, k1, k2, p2 = (time_cuda(f, 20) for f in (plain, kern, kern, plain))
+        lib = time_cuda(lambda: torch.gather(x, 1, idx), 20)  # noqa: B023
+        b = bound(nbytes(starts) + 2 * got.numel() * got.element_size(), 0.0)
+        log(
+            f"phase 11 window_rows [{s}, {n}] -> {length} x {max(windows, 1)}: bit-exact; kernel "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, torch.gather {lib:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card_line()}]"
+        )
+        if length == 4800:
+            result = {"max_abs_err": max_abs_err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                      "library_ms": lib, **b}
+        del got, ref, idx
+    del x
+    torch.cuda.empty_cache()
+    return result
+
+
+def osc_config(**kw):
+    from openmeters_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(spectrum=None, stereometer=None, waveform=None, channels=2, **kw)
+
+
+def osc_audio(hops: int, seed: int) -> np.ndarray:
+    """``[8, hops * 256, 2]`` stereo: sines at 110, 440 and 1234 Hz, a
+    220 Hz sawtooth, a 220 -> 880 Hz glide, silence then a 330 Hz onset at
+    hop 30, a 440 Hz sine, a quiet 660 Hz sine with its octave; right is
+    left at 0.8 plus a tone at 1.5 times the base, and faint noise."""
+    rng = np.random.default_rng(seed)
+    n = hops * 256
+    t = np.arange(n) / 48_000.0
+    k = 2.0 * np.log(2.0) / (n / 48_000.0)
+    left = np.stack([
+        0.6 * np.sin(2 * np.pi * 110.0 * t),
+        0.5 * np.sin(2 * np.pi * 440.0 * t),
+        0.4 * np.sin(2 * np.pi * 1234.0 * t),
+        0.5 * (2.0 * ((220.0 * t) % 1.0) - 1.0),
+        0.5 * np.sin(2 * np.pi * 220.0 * (np.exp(k * t) - 1.0) / k),
+        np.where(t >= 30 * 256 / 48_000.0, 0.5 * np.sin(2 * np.pi * 330.0 * t), 0.0),
+        0.5 * np.sin(2 * np.pi * 440.0 * t + 1.0),
+        0.003 * (np.sin(2 * np.pi * 660.0 * t) + 0.5 * np.sin(2 * np.pi * 1320.0 * t)),
+    ])
+    base = np.array([110.0, 440.0, 1234.0, 220.0, 220.0, 330.0, 440.0, 660.0])
+    right = 0.8 * left + 0.2 * np.sin(2 * np.pi * 1.5 * base[:, None] * t + rng.uniform(0, 6, (8, 1)))
+    return (np.stack([left, right], -1) + 1e-4 * rng.standard_normal((8, n, 2))).astype(np.float32)
+
+
+def phase12_osc_slice(dev) -> None:
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import MeterEngine
+    from openmeters_tpu_torch.utils.parity import check_oscilloscope, oscilloscope_errors
+
+    s, hops, b = 8, 150, 256
+    audio = osc_audio(hops, SEED + 12)
+    reset = np.zeros((s,), bool)
+    reset[[3, 6]] = True
+    engine = MeterEngine(osc_config(loudness=None, spectrogram=None))
+    sessions = {d: AnalysisSession(engine, s, d) for d in (dev, "cpu")}
+    keys = ("has_period", "missed", "reference", "pspec_re", "pspec_im")
+    worst = {"period": 0.0, "span": 0.0, "position": 0.0, "reference": 0.0, "pspec": 0.0, "start_moved": 0}
+    locked = 0
+    for i in range(hops):
+        blk = audio[:, i * b : (i + 1) * b]
+        r = reset if i == 90 else None
+        snaps = {d: sess.feed(blk, r)["oscilloscope"] for d, sess in sessions.items()}
+        states = {d: {k: sess.carry["oscilloscope"][k] for k in keys} for d, sess in sessions.items()}
+        err = oscilloscope_errors(snaps[dev], snaps["cpu"], states[dev], states["cpu"])
+        check_oscilloscope(err, f"phase 12 hop {i}")
+        for key in worst:
+            worst[key] = worst[key] + err[key] if key == "start_moved" else max(worst[key], err[key])
+        locked += int(snaps["cpu"].locked.sum())
+    log(
+        f"phase 12 oscilloscope card vs cpu, S={s}, {hops} hops, reset at hop 90: locked, valid, "
+        f"has_period and missed equal on every hop ({locked} locked stream-hops); start moved by one "
+        f"sample at {worst['start_moved']} captures, samples equal at the others; max relative "
+        f"|d period| {worst['period']:.3e}, |d span| {worst['span']:.3e}; max |d (start + frac)| "
+        f"{worst['position']:.3e} sample; reference {worst['reference']:.3e} and probe spectrum "
+        f"{worst['pspec']:.3e} of their row maximum"
+    )
+    check(locked > hops, "the oscilloscope hardly locked")
+
+
+def phase13_default_s8192(dev) -> dict:
+    """The tentpole config at S=8192, timed and profiled as in phase 5."""
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import MeterEngine
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+
+    s, b, warmup = FLAGSHIP_S, 256, 80
+    engine = MeterEngine(osc_config())
+    torch.cuda.reset_peak_memory_stats()
+    session = AnalysisSession(engine, s, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bank = 16  # distinct blocks made on the card, fed in turn
+    t = torch.arange(bank * b, device=dev, dtype=torch.float32) / 48_000.0
+    freqs = torch.exp(torch.rand((s, 1, 1), generator=gen, device=dev) * math.log(2000.0 / 40.0)) * 40.0
+    audio = 0.3 * torch.sin(2 * torch.pi * freqs * t[None, :, None]) + 0.05 * torch.randn(
+        (s, bank * b, 2), generator=gen, device=dev
+    )
+    blocks = [audio[:, i * b : (i + 1) * b].contiguous() for i in range(bank)]
+    del audio
+
+    sink = torch.zeros((), device=dev, dtype=torch.float64)
+    locked = torch.zeros((), device=dev, dtype=torch.int64)
+
+    def consume(snaps):
+        # every output leaf, the extracted capture windows included, into
+        # one device scalar
+        nonlocal sink, locked
+        lo, sg, osc = snaps["loudness"], snaps["spectrogram"], snaps["oscilloscope"]
+        acc = sum(getattr(lo, f).sum(dtype=torch.float64) for f in lo._fields)
+        for f in ("freq_hz", "time_offset", "power", "point_valid", "valid"):
+            acc = acc + getattr(sg, f).sum(dtype=torch.float64)
+        for f in osc._fields:
+            acc = acc + getattr(osc, f).sum(dtype=torch.float64)
+        sink = sink + acc
+        locked = locked + osc.locked.sum()
+
+    for i in range(warmup):
+        consume(session.feed(blocks[i % bank]))
+    torch.cuda.synchronize()
+    locked.zero_()
+
+    counters = (corr_dots_sums_ring, window_rows, reassigned_sliding_hop)
+    for c in counters:
+        c.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIMED_HOPS):
+        snaps = session.feed(blocks[(warmup + i) % bank])
+        consume(snaps)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+
+    ms = start.elapsed_time(stop) / TIMED_HOPS
+    realtime = s * (b / 48_000.0) / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    log(
+        f"phase 13 loudness + reassigned 2048/64 + oscilloscope S={s}: {ms:.4f} ms/hop (CUDA events; "
+        f"host wall {1e3 * wall / TIMED_HOPS:.4f} ms/hop), {realtime:.1f} streams realtime, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches {launches}, {int(locked)} locked stream-hops of "
+        f"{s * TIMED_HOPS} [{card_line()}]"
+    )
+    check(launches["corr_dots_sums_ring"] == TIMED_HOPS, f"corr_dots_sums_ring launches {launches}")
+    check(launches["window_rows"] == 2 * TIMED_HOPS, f"window_rows launches {launches}")
+    check(launches["reassigned_sliding_hop"] == TIMED_HOPS, f"reassigned_sliding_hop launches {launches}")
+    check(bool(torch.isfinite(sink)), "non-finite output")
+    check(int(locked) > s * TIMED_HOPS // 2, f"only {int(locked)} locked stream-hops")
+    osc = snaps["oscilloscope"]
+    check(tuple(osc.samples.shape) == (s, 2, engine.analyzers["oscilloscope"].window_cap), "capture shape")
+    check(bool(osc.trace_valid[:, 0].all()), "capture not valid")
+    profile_hops("phase 13", session, blocks, consume, ms)
+    result = {"ms_per_hop": ms, "launches": launches, "peak_gib": peak / 2**30}
+    del session, blocks
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -685,13 +1067,19 @@ def main() -> int:
     col_kernel = phase7_reassigned_columns(dev)
     phase8_reassigned_slice(dev)
     hop_launches, col_launches = phase9_reassigned_s8192(dev)
+    corr_kernels = phase10_corr(dev)
+    rows_kernel = phase11_rows(dev)
+    phase12_osc_slice(dev)
+    osc_launches = phase13_default_s8192(dev)["launches"]
 
     def entry(name, source, replaces, n, k):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
 
+    corr_src = "openmeters_tpu_torch/csrc/corr_search.cu"
     print(json.dumps({
         "kernels": [
             entry("sliding_hop", "openmeters_tpu_torch/csrc/sliding_hop.cu",
@@ -700,6 +1088,15 @@ def main() -> int:
                   "openmeters_tpu/ops/pallas_sliding_reassigned.py:229", hop_launches, hop_kernel),
             entry("reassigned_columns", "openmeters_tpu_torch/csrc/reassigned_columns.cu",
                   "openmeters_tpu/ops/pallas_reassigned.py:363", col_launches, col_kernel),
+            entry("corr_dots_sums_ring", corr_src, "openmeters_tpu/ops/pallas_corr.py:524",
+                  osc_launches["corr_dots_sums_ring"], corr_kernels["corr_dots_sums_ring"]),
+            # no engine path calls these two: the JAX package uses them in tests and tools only
+            entry("corr_dots_sums", corr_src, "openmeters_tpu/ops/pallas_corr.py:451", 0,
+                  corr_kernels["corr_dots_sums"]),
+            entry("corr_dots", corr_src, "openmeters_tpu/ops/pallas_corr.py:579", 0,
+                  corr_kernels["corr_dots"]),
+            entry("window_rows", "openmeters_tpu_torch/csrc/window_rows.cu",
+                  "openmeters_tpu/ops/pallas_rows.py:117", osc_launches["window_rows"], rows_kernel),
         ],
     }))
     print(card_line())

@@ -5,9 +5,10 @@ against; this one imports ``torch``, numpy and the standard library only.
 It mirrors the reference layout (``utils/``, ``ops/``, ``analyzers/``,
 ``engine/``, ``api.py``) so each module's counterpart is easy to find.
 
-Ported so far: the flagship meter path — BS.1770 loudness plus the classic
-sliding-DFT spectrogram — with the sliding-DFT hop as a hand-written CUDA
-kernel (``ops/sliding_hop.py``, ``csrc/sliding_hop.cu``).
+Ported so far: BS.1770 loudness, the spectrogram (classic and reassigned)
+and the oscilloscope.  Each TPU kernel on their paths is a hand-written CUDA
+kernel in ``csrc/`` behind a wrapper in ``ops/`` that runs its plain
+PyTorch version for CPU tensors.
 """
 
 from openmeters_tpu_torch.api import AnalysisSession, analyze  # noqa: F401

@@ -1,9 +1,9 @@
 """Batch API: arrays in, per-hop snapshots out (port of ``api.py``).
 
 ``analyze()`` is the single-call entry; ``AnalysisSession`` holds state for
-incremental feeding.  Both take an explicit torch device and return
-snapshots as tensors on it.  Asking for ``"cuda"`` where no card is present
-raises; nothing moves to the CPU on its own.
+incremental feeding.  Both run on the card (``"cuda"``) unless given
+another torch device, and return snapshots as tensors on it.  Where no card
+is present ``"cuda"`` raises; nothing moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ class AnalysisSession:
 
     engine: MeterEngine
     n_streams: int
-    device: torch.device | str
+    device: torch.device | str = "cuda"
     meta: StreamMeta | None = None
 
     def __post_init__(self):
@@ -40,6 +40,10 @@ class AnalysisSession:
         if reset_mask is not None:
             reset_mask = torch.as_tensor(reset_mask, dtype=torch.bool).to(self.device)
         self.carry, snaps = self.engine.step(self.carry, block, self.meta, reset_mask)
+        if "oscilloscope" in snaps:
+            # the engine's oscilloscope keeps capture metadata only; offline
+            # analysis reads the trace windows every hop
+            snaps["oscilloscope"] = self.engine.extract_oscilloscope(self.carry)
         return snaps
 
     def run(self, audio, collect: bool = True) -> list[dict]:
@@ -71,7 +75,7 @@ def analyze(
     sample_rate: float = 48_000.0,
     config: EngineConfig | None = None,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ) -> list[dict]:
     """Analyze recordings on ``device``.
 
@@ -80,7 +84,7 @@ def analyze(
         ``[n_streams, frames, channels]`` float32.
       sample_rate: shared sample rate.
       config: engine config; defaults to all default analyzers.
-      device: torch device to run on, e.g. ``"cuda"`` or ``"cpu"``.
+      device: torch device to run on: the card by default, or ``"cpu"``.
 
     Returns a list of per-hop snapshot dicts (final entry = end state).
     """

@@ -3,7 +3,7 @@
 The meters hold no weights: what crosses between the JAX package and this
 one is the engine carry.  The JAX carry comes in as numpy arrays, with the
 shared scalars as 0-d arrays; here those scalars are host ints (or bools)
-and everything else is a tensor.
+and everything else is a tensor.  Both trees nest dicts and tuples.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ def carry_from_jax(carry_np: dict, engine, device=None) -> dict:
             if set(node) != set(tmpl):
                 raise KeyError(f"{path}: keys {sorted(node)} != {sorted(tmpl)}")
             return {k: convert(node[k], tmpl[k], f"{path}/{k}") for k in tmpl}
+        if isinstance(tmpl, tuple):
+            if not isinstance(node, (tuple, list)) or len(node) != len(tmpl):
+                raise ValueError(f"{path}: want a sequence of {len(tmpl)}")
+            return tuple(convert(n, t, f"{path}/{i}") for i, (n, t) in enumerate(zip(node, tmpl)))
         arr = np.asarray(node)
         if isinstance(tmpl, bool):
             return bool(arr)
@@ -44,6 +48,8 @@ def carry_to_numpy(carry: dict) -> dict:
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(convert(v) for v in node)
         if isinstance(node, bool):
             return np.asarray(node, bool)
         if isinstance(node, int):

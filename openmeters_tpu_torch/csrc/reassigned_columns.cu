@@ -22,18 +22,22 @@
 //        time  = (Re T Re B + Im T Im B)/|B|^2 / hop - latency
 //        power = |B|^2 norm[k]
 //
-// What bounds it: shared-memory traffic.  Each radix-2 stage reads and
-// writes the whole complex buffer once; at n = 8192 (h = 16384) that is
-// 14 + 14 + 13 stages over 128 KB, ~11 MB of shared-memory traffic per
-// frame against 64 KB in and 48 KB out of device memory.
+// What bounds it: shared-memory traffic.  Each pass of two radix-2
+// stages reads and writes the whole complex buffer once; at n = 8192
+// (h = 16384) that is 7 + 7 + 7 passes over 128 KB, ~5.5 MB of
+// shared-memory traffic per frame against 64 KB in and 48 KB out of
+// device memory.
 //
 // Design.  The complex f32 h-buffer is the block's only shared memory:
 // 128 KB at h = 16384, so one block fits in Hopper's 227 KB and the crop
 // and U and V reuse it.  Twiddles exp(-2 pi i k/h), k < h/2, come from a
 // table computed in double on the host and stored as f32; the n-point
 // transforms read it at stride h/n.  Threads: h/8, from 32 to 1024.  All
-// arithmetic is plain f32 (no fast math).
+// arithmetic is plain f32 (no fast math).  The radix-2 stages are in
+// fft_radix2.cuh.
 #include <cuda_runtime.h>
+
+#include "fft_radix2.cuh"
 
 namespace {
 
@@ -52,54 +56,6 @@ struct Params {
   float bin_hz, inv_2pi, inv_hop, latency_hops;
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// Radix-2 decimation in frequency over `count` consecutive transforms of
-// 2^log2N points: natural order in, bit-reversed order out.
-__device__ void fft_dif(float2* z, int log2N, int count, const float2* tw, int log2h,
-                        bool inverse) {
-  const int total = count << (log2N - 1);
-  for (int lh = log2N - 1; lh >= 0; --lh) {  // butterfly span 2^lh
-    const int half = 1 << lh;
-    const int shift = log2h - lh - 1;        // w_len^pos = tw[pos * h / len]
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i = ((b >> lh) << (lh + 1)) | pos;
-      const int j = i + half;
-      float2 w = __ldg(tw + (pos << shift));
-      if (inverse) w.y = -w.y;
-      const float2 u = z[i], v = z[j];
-      z[i] = make_float2(u.x + v.x, u.y + v.y);
-      z[j] = cmul(make_float2(u.x - v.x, u.y - v.y), w);
-    }
-    __syncthreads();
-  }
-}
-
-// Radix-2 decimation in time: bit-reversed order in, natural order out.
-__device__ void fft_dit(float2* z, int log2N, int count, const float2* tw, int log2h,
-                        bool inverse) {
-  const int total = count << (log2N - 1);
-  for (int lh = 0; lh < log2N; ++lh) {
-    const int half = 1 << lh;
-    const int shift = log2h - lh - 1;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i = ((b >> lh) << (lh + 1)) | pos;
-      const int j = i + half;
-      float2 w = __ldg(tw + (pos << shift));
-      if (inverse) w.y = -w.y;
-      const float2 u = z[i];
-      const float2 v = cmul(z[j], w);
-      z[i] = make_float2(u.x + v.x, u.y + v.y);
-      z[j] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-  }
-}
-
 __global__ void reassigned_columns_kernel(const Params P) {
   extern __shared__ __align__(16) float2 z[];  // [h]
   const int t = threadIdx.x, nt = blockDim.x;
@@ -109,7 +65,7 @@ __global__ void reassigned_columns_kernel(const Params P) {
   // 1. forward h-point FFT of the real frame
   for (int i = t; i < h; i += nt) z[i] = make_float2(frame[i], 0.f);
   __syncthreads();
-  fft_dif(z, P.log2h, 1, P.tw, P.log2h, false);
+  fft_dif4(z, P.log2h, 1, P.tw, P.log2h, false);
 
   // 2. analytic selection: position p holds bin rev(p)
   for (int p = t; p < h; p += nt) {
@@ -119,7 +75,7 @@ __global__ void reassigned_columns_kernel(const Params P) {
   __syncthreads();
 
   // 3. inverse h-point FFT (unscaled)
-  fft_dit(z, P.log2h, 1, P.tw, P.log2h, true);
+  fft_dit4(z, P.log2h, 1, P.tw, P.log2h, true, 0);
 
   // 4. the centre crop, scaled, into the bit-reversed inputs of U and V
   const int center = (h - n) / 2;
@@ -148,7 +104,7 @@ __global__ void reassigned_columns_kernel(const Params P) {
   __syncthreads();
 
   // 5. U and V
-  fft_dit(z, P.log2n, 2, P.tw, P.log2h, false);
+  fft_dit4(z, P.log2n, 2, P.tw, P.log2h, false, 0);
 
   // 6. stencils and corrections
   const float2* U = z;

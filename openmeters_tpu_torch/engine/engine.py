@@ -4,13 +4,17 @@ of ``engine/engine.py``).
 A step takes a ``[S, B, C]`` block plus per-stream fold/weight matrices
 (:class:`StreamMeta`) and a per-stream reset mask, folds it to stereo and
 its mid projection, and fans out to the enabled analyzers.  Ported
-analyzers: loudness and the classic sliding-DFT spectrogram.  A config that
+analyzers: loudness, the spectrogram and the oscilloscope.  A config that
 enables any other analyzer raises ``NotImplementedError`` when the engine
 is built.
 
+The oscilloscope runs in external-capture mode (``snapshot_every`` forced
+to 0): the step keeps capture metadata only, and
+:meth:`MeterEngine.extract_oscilloscope` reads the trace windows.
+
 State updates in place where an analyzer says so (the framing ring, the
-loudness rings and histograms): a carry must not be reused after it has
-been stepped.
+loudness rings and histograms, the oscilloscope's history rings): a carry
+must not be reused after it has been stepped.
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from typing import Any, NamedTuple
 import torch
 
 from openmeters_tpu_torch.analyzers.loudness import LoudnessAnalyzer, LoudnessConfig
-from openmeters_tpu_torch.analyzers.oscilloscope import OscilloscopeConfig
+from openmeters_tpu_torch.analyzers.oscilloscope import (
+    OscilloscopeAnalyzer,
+    OscilloscopeConfig,
+)
 from openmeters_tpu_torch.analyzers.spectrogram import (
     SpectrogramAnalyzer,
     SpectrogramConfig,
@@ -41,7 +48,6 @@ DSP_BATCH_FRAMES_AT_48K = 256
 # analyzers whose port has not landed, with the ROADMAP item that ports them
 PENDING = {
     "spectrum": "A8",
-    "oscilloscope": "A10",
     "stereometer": "A9",
     "waveform": "A9",
 }
@@ -120,9 +126,13 @@ class MeterEngine:
             out["loudness"] = LoudnessAnalyzer(cfg.loudness)
         if cfg.spectrogram:
             out["spectrogram"] = SpectrogramAnalyzer(cfg.spectrogram)
+        if cfg.oscilloscope:
+            # external capture: the step keeps capture metadata only
+            oc = dataclasses.replace(cfg.oscilloscope, snapshot_every=0)
+            out["oscilloscope"] = OscilloscopeAnalyzer(oc)
         return out
 
-    def init(self, n_streams: int, device=None) -> dict:
+    def init(self, n_streams: int, device="cuda") -> dict:
         return {
             name: a.init(n_streams, device=device) for name, a in self.analyzers.items()
         }
@@ -144,4 +154,12 @@ class MeterEngine:
             new_carry["spectrogram"], snaps["spectrogram"] = analyzers[
                 "spectrogram"
             ].step(carry["spectrogram"], mid, reset_mask)
+        if "oscilloscope" in analyzers:
+            new_carry["oscilloscope"], snaps["oscilloscope"] = analyzers[
+                "oscilloscope"
+            ].step(carry["oscilloscope"], stereo, reset_mask)
         return new_carry, snaps
+
+    def extract_oscilloscope(self, carry: dict):
+        """The oscilloscope's capture windows from the live carry."""
+        return self.analyzers["oscilloscope"].extract(carry["oscilloscope"])

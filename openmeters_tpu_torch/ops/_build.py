@@ -133,6 +133,17 @@ def load_library() -> ctypes.CDLL:
                 p,  # stream
             ]
             lib.reassigned_columns_launch.restype = ctypes.c_int
+            lib.corr_search_launch.argtypes = [
+                p, p, p,  # src starts tmpl
+                p, p, p, p,  # klen wlen shift twiddles
+                p, p, p, p,  # dots sx sxx wmean
+                p, i,  # scratch grid
+                i, i, i, i, i, i, i,  # rows src_len wcap tmpl_len n out_len sums
+                p,  # stream
+            ]
+            lib.corr_search_launch.restype = ctypes.c_int
+            lib.window_rows_launch.argtypes = [p, p, p, i, i, i, i, p]  # x starts out rows n windows length stream
+            lib.window_rows_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
 

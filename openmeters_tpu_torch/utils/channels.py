@@ -1,8 +1,9 @@
 """Channel layouts, stereo fold matrices and BS.1770 channel weights
 (port of ``utils/channels.py``), host numpy.
 
-``Channel`` is carried too: the config dataclasses of the analyzers whose
-port is still pending name it in their defaults.
+``Channel`` and its stereo projections are carried too: the oscilloscope
+projects onto them, and the config dataclasses of the analyzers whose port
+is still pending name them in their defaults.
 """
 
 from __future__ import annotations
@@ -23,6 +24,17 @@ class Channel(enum.Enum):
     MID = "mid"
     SIDE = "side"
     NONE = "none"
+
+
+def projection_vector(channel: Channel) -> np.ndarray:
+    """``[2]`` weights so that ``stereo @ v`` projects onto ``channel``."""
+    return {
+        Channel.LEFT: np.array([1.0, 0.0], np.float32),
+        Channel.RIGHT: np.array([0.0, 1.0], np.float32),
+        Channel.MID: np.array([0.5, 0.5], np.float32),
+        Channel.SIDE: np.array([0.5, -0.5], np.float32),
+        Channel.NONE: np.array([0.0, 0.0], np.float32),
+    }[channel]
 
 
 class ChannelPosition(enum.Enum):

@@ -1,6 +1,8 @@
-"""Bars for holding one implementation's reassigned spectrogram columns
-against another's: a kernel against its plain version, the card against the
-CPU, or the port against the JAX package.
+"""Bars for holding one implementation against another: a kernel against
+its plain version, the card against the CPU, or the port against the JAX
+package.  First the reassigned spectrogram's, then the oscilloscope's.
+
+Reassigned spectrogram columns.
 
 At valid bins within 60 dB of their column's peak power:
 |d freq| <= 0.5 Hz, |d power| / power <= 5e-3 and |d time| <= 0.01 hop (the
@@ -17,6 +19,33 @@ the time error grows as the bin's amplitude ratio to the peak.  The port
 against the JAX package on the CPU reaches 8.2e-3 hop within 50 dB and
 1.5e-2 hop within 60 dB; the time bar there is 0.015 hop within 50 dB and
 0.03 hop from 50 to 60 dB.
+
+Oscilloscope.  The correlation search (``ops/corr.py``): dots within 5e-6
+of the row set's largest |dots|, sx, sxx and wmean within 1e-5 of
+max(|ref|, 1) (the JAX package's bars for its kernel,
+tests/test_pallas_corr.py:41,146).  The analyzer, hop by hop: ``locked``,
+``trace_valid``, ``has_period`` and ``missed`` equal; ``period`` and
+``span`` within 1e-4 relative; the capture position ``start + frac``
+within 0.01 sample, and ``start`` within one sample; ``reference`` and the
+probe spectrum within 1e-4 of their row's largest magnitude; ``samples``
+equal, shifted by one sample where ``start`` moved by one.
+
+The position is the parabolic refinement of the correlation peak, ``0.5
+(y0 - y2) / (y0 - 2 y1 + y2)``: at 110 Hz and 48 kHz the peak's curvature
+is ~2e-4 of its height, so a difference of a few 1e-7 in the f32 scores
+moves it by thousandths of a sample.  Right paths part by up to 2.17e-3
+sample (the port against the JAX package on the CPU, the largest
+``position_gap`` that tests/test_torch_oscilloscope.py records) and 1.34e-3
+(the card against the CPU).  Wrong score paths part by more: f32 dots
+rounded to bf16, or the anchor shift off by one, move it by 0.68 to 1.7
+samples; dropping the template-mean term by 0.016 at the least.  The bar
+is 0.01 sample at 48 kHz.  It scales as the square of the sample rate: the
+curvature per sample squared falls so, and the card against the CPU at
+192 kHz parts by 0.0205 sample, 15 times the 48 kHz gap.  Where the
+position sits within the bar of a whole sample, the refinement's borrow
+(``frac < 0`` moves ``start`` back one) can fall on either side, so
+``start`` may differ by one where the positions agree; ``samples`` then
+agree shifted by that sample.
 """
 
 from __future__ import annotations
@@ -78,3 +107,139 @@ def check_reassigned(errors: dict, where: str = "") -> None:
     ):
         if not ok:
             raise AssertionError(f"{where}: {what}")
+
+
+# -- oscilloscope -------------------------------------------------------------
+
+DOTS_REL = 5e-6
+SUMS_REL = 1e-5
+PERIOD_REL = 1e-4
+POSITION_ABS = 1e-2  # samples at 48 kHz (see the module docstring)
+POSITION_RATE = 48_000.0
+
+
+def position_bar(sample_rate: float = POSITION_RATE) -> float:
+    """The bar on ``start + frac`` in samples: ``POSITION_ABS`` at 48 kHz,
+    scaling as the square of the rate (the peak's curvature per sample
+    squared falls so)."""
+    return POSITION_ABS * (sample_rate / POSITION_RATE) ** 2
+ROW_REL = 1e-4
+
+
+def corr_errors(ours, ref) -> dict:
+    """Errors of ``(dots, sx, sxx, wmean)`` (or ``dots`` alone) against
+    ``ref``, each as a share of its bar's scale: dots over max |dots|, the
+    sums over max(|ref|, 1)."""
+    if isinstance(ours, torch.Tensor):
+        ours, ref = (ours,), (ref,)
+    out = {}
+    for name, a, b in zip(("dots", "sx", "sxx", "wmean"), ours, ref):
+        a, b = a.double(), b.double().to(a.device)
+        d = float((a - b).abs().max())
+        if name == "dots":
+            out[name] = d / max(float(b.abs().max()), 1e-30)
+        else:
+            out[name] = d / max(float(b.abs().max()), 1.0)
+        out[name + "_abs"] = d
+    return out
+
+
+def check_corr(errors: dict, where: str = "") -> None:
+    """Raise ``AssertionError`` if ``errors`` (from :func:`corr_errors`)
+    break a bar."""
+    for name, err in errors.items():
+        if name.endswith("_abs"):
+            continue
+        bar = DOTS_REL if name == "dots" else SUMS_REL
+        if not err <= bar:
+            raise AssertionError(f"{where}: {name} differs by {err} of its scale (bar {bar})")
+
+
+def _samples_agree(a, b, step):
+    """Per trace: capture windows ``a`` and ``b`` (``[..., L]``) equal, or,
+    where ``a`` starts ``step`` = +-1 samples after ``b``, equal shifted by
+    that sample (or equal as they are: a window clipped at the ring's end
+    does not move).  Larger steps count as agreeing: they fail on
+    ``start``."""
+    same = (a == b).all(-1)
+    later = (a[..., :-1] == b[..., 1:]).all(-1)  # a[j] = b[j + 1]
+    earlier = (a[..., 1:] == b[..., :-1]).all(-1)
+    shifted = torch.where(step == 1, later, torch.where(step == -1, earlier, True))
+    return same | ((step != 0) & shifted)
+
+
+def oscilloscope_errors(ours, ref, ours_state=None, ref_state=None) -> dict:
+    """Compare two ``OscilloscopeSnapshot``-like tuples (fields as tensors
+    or arrays) and, optionally, two trigger states (dicts with
+    ``has_period``, ``missed``, ``reference`` and, where present,
+    ``pspec_re``/``pspec_im``).
+
+    Returns the errors: ``mismatch`` lists the fields that differ where
+    they must not (``start`` by more than one sample; ``samples`` other
+    than by the one-sample shift of their ``start``); ``period``, ``span``
+    (relative), ``position`` (``start + frac``, in samples), ``reference``
+    and ``pspec`` (share of the row maximum); ``start_moved`` counts the
+    captures whose ``start`` differs by one."""
+
+    def t(x):
+        return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+    mismatch = []
+    o = {f: t(getattr(ours, f)).cpu() for f in ours._fields}
+    r = {f: t(getattr(ref, f)).cpu() for f in ref._fields}
+    for f in ("locked", "trace_valid"):
+        if not torch.equal(o[f], r[f]):
+            mismatch.append(f)
+    step = o["start"].long() - r["start"].long()
+    moved = step.abs()
+    if bool((moved > 1).any()):
+        mismatch.append("start")
+    if o["samples"].shape != r["samples"].shape or not bool(_samples_agree(o["samples"], r["samples"], step).all()):
+        mismatch.append("samples")
+
+    def rel(f):
+        a, b = o[f].double(), r[f].double()
+        return float(((a - b).abs() / torch.clamp_min(b.abs(), 1e-30)).max())
+
+    def position(x):
+        return x["start"].double() + x["frac"].double()
+
+    errors = {
+        "period": rel("period"),
+        "span": rel("span"),
+        "position": float((position(o) - position(r)).abs().max()),
+        "start_moved": int((moved > 0).sum()),
+        "reference": 0.0,
+        "pspec": 0.0,
+    }
+    if ours_state is not None:
+        s1 = {k: t(v).cpu().double() for k, v in ours_state.items()}
+        s2 = {k: t(v).cpu().double() for k, v in ref_state.items()}
+        for f in ("has_period", "missed"):
+            if not torch.equal(s1[f], s2[f]):
+                mismatch.append(f)
+        scale = torch.clamp_min(s2["reference"].abs().amax(dim=-1, keepdim=True), 1e-30)
+        errors["reference"] = float(((s1["reference"] - s2["reference"]).abs() / scale).max())
+        if "pspec_re" in s2:
+            mag = torch.hypot(s2["pspec_re"], s2["pspec_im"])
+            scale = torch.clamp_min(mag.amax(dim=-1, keepdim=True), 1e-30)
+            d = torch.maximum((s1["pspec_re"] - s2["pspec_re"]).abs(), (s1["pspec_im"] - s2["pspec_im"]).abs())
+            errors["pspec"] = float((d / scale).max())
+    errors["mismatch"] = mismatch
+    return errors
+
+
+def check_oscilloscope(errors: dict, where: str = "", sample_rate: float = POSITION_RATE) -> None:
+    """Raise ``AssertionError`` if ``errors`` (from
+    :func:`oscilloscope_errors`) break a bar; ``sample_rate`` sets the
+    position's (:func:`position_bar`)."""
+    for ok, what in (
+        (not errors["mismatch"], f"{errors['mismatch']} differ"),
+        (errors["period"] <= PERIOD_REL, f"period differs by {errors['period']} relative"),
+        (errors["span"] <= PERIOD_REL, f"span differs by {errors['span']} relative"),
+        (errors["position"] <= position_bar(sample_rate), f"start + frac differs by {errors['position']}"),
+        (errors["reference"] <= ROW_REL, f"reference differs by {errors['reference']} of its row"),
+        (errors["pspec"] <= ROW_REL, f"probe spectrum differs by {errors['pspec']} of its row"),
+    ):
+        if not ok:
+            raise AssertionError(f"{where}: {what} (errors {errors})")

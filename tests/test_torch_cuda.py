@@ -8,13 +8,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from openmeters_tpu_torch.analyzers import oscilloscope as tosc  # noqa: E402
+from openmeters_tpu_torch.ops import corr as tcorr  # noqa: E402
 from openmeters_tpu_torch.ops import reassigned_columns as rcols  # noqa: E402
 from openmeters_tpu_torch.ops import reassigned_hop as rhop  # noqa: E402
+from openmeters_tpu_torch.ops import rows as trows  # noqa: E402
 from openmeters_tpu_torch.ops import sliding_hop as thop  # noqa: E402
 from openmeters_tpu_torch.ops.sliding_reassigned import SlidingReassigned  # noqa: E402
 from openmeters_tpu_torch.ops.sliding_stft import SlidingSTFT  # noqa: E402
 from openmeters_tpu_torch.utils.level import DB_FLOOR  # noqa: E402
-from openmeters_tpu_torch.utils.parity import check_reassigned, reassigned_errors  # noqa: E402
+from openmeters_tpu_torch.utils.parity import (  # noqa: E402
+    check_corr,
+    check_oscilloscope,
+    check_reassigned,
+    corr_errors,
+    oscilloscope_errors,
+    position_bar,
+    reassigned_errors,
+)
 from openmeters_tpu_torch.utils.windows import (  # noqa: E402
     WindowKind,
     fft_bin_normalization,
@@ -194,3 +205,137 @@ def test_reassigned_kernels_reject_unsupported(card):
         rhop.reassigned_sliding_hop(1, st, d.cpu(), d, *args, **kw)
     with pytest.raises(ValueError):  # a stencil wider than the kernel's halo
         rhop.reassigned_sliding_hop(1, st, d, d, *args, **{**kw, "coeffs": (0.3, 0.2, 0.2, 0.2, 0.1)})
+
+
+# the search's shapes at 48 kHz (buffer in shared memory) and 192 kHz (in
+# global scratch): ring lanes, template cap, window cap, nfft, offsets
+SEARCH_SHAPES = {48_000: (19456, 4800, 7200, 8192, 2401), 192_000: (77312, 19200, 28800, 32768, 9601)}
+
+
+def _search_inputs(card, s, lanes=19456, kcap=4800):
+    """Ring, starts (clamp cases included), template, klen, wlen and shift
+    as the oscilloscope hands them to the search, from a seed."""
+    rng = np.random.default_rng(s)
+    ring = rng.standard_normal((s, lanes)).astype(np.float32)
+    starts = rng.integers(-5, lanes, s).astype(np.int32)
+    starts[:4] = [0, 127, 9727, 12256]
+    klen = rng.integers(2 * kcap // 5, kcap + 1, s).astype(np.int32)
+    tmpl = (rng.standard_normal((s, kcap)) * (np.abs(np.arange(kcap) - kcap // 2) < klen[:, None] // 2))
+    wlen = (klen + rng.integers(1, klen // 2 + 1)).astype(np.int32)
+    shift = -((kcap - klen) // 2).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, a.dtype if a.dtype != np.float64 else np.float32)).to(card)
+                 for a in (ring, starts, tmpl, klen, wlen, shift))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,rate", [(37, 48_000), (256, 48_000), (300, 192_000)])
+def test_corr_search_kernels_match_plain(card, s, rate):
+    lanes, kcap, wcap, nfft, out = SEARCH_SHAPES[rate]
+    ring, starts, tmpl, klen, wlen, shift = _search_inputs(card, s, lanes, kcap)
+    before = tcorr.corr_dots_sums_ring.launches
+    got = tcorr.corr_dots_sums_ring(ring, starts, tmpl, klen, wlen, shift, nfft, out, wcap)
+    assert tcorr.corr_dots_sums_ring.launches == before + 1
+    ref = tcorr.corr_dots_sums_ring_reference(ring, starts, tmpl, klen, wlen, shift, nfft, out, wcap)
+    torch.cuda.synchronize()
+    check_corr(corr_errors(got, ref), "corr_dots_sums_ring")
+
+    work = trows.window_rows_reference(ring, starts.long().clamp(0, lanes - wcap), wcap).contiguous()
+    got = tcorr.corr_dots_sums(work, tmpl, klen, wlen, shift, nfft, out)
+    check_corr(corr_errors(got, tcorr.corr_dots_sums_reference(work, tmpl, klen, wlen, shift, nfft, out)),
+               "corr_dots_sums")
+    dots = tcorr.corr_dots(work, tmpl, shift, nfft, out)
+    check_corr(corr_errors(dots, tcorr.corr_dots_reference(work, tmpl, shift, nfft, out)), "corr_dots")
+    assert tcorr.corr_dots.launches >= 1 and tcorr.corr_dots_sums.launches >= 1
+
+
+@pytest.mark.cuda
+def test_corr_search_quiet_window(card):
+    """A window 60 dB below its template: the kernel balances the two
+    before packing them into one transform, so the dots keep their bar."""
+    ring, starts, tmpl, klen, wlen, shift = _search_inputs(card, 16)
+    ring = ring * 1e-3
+    got = tcorr.corr_dots_sums_ring(ring, starts, tmpl, klen, wlen, shift, 8192, 2401, 7200)
+    ref = tcorr.corr_dots_sums_ring_reference(ring, starts, tmpl, klen, wlen, shift, 8192, 2401, 7200)
+    check_corr(corr_errors(got, ref), "quiet window")
+
+
+def _carry_to(carry, dev):
+    if isinstance(carry, dict):
+        return {k: _carry_to(v, dev) for k, v in carry.items()}
+    if isinstance(carry, tuple):
+        return tuple(_carry_to(v, dev) for v in carry)
+    return carry.to(dev) if isinstance(carry, torch.Tensor) else carry
+
+
+@pytest.mark.cuda
+def test_oscilloscope_at_192k_card_matches_cpu(card, record_property):
+    """At 192 kHz the search's 32768-point buffer is in global scratch: the
+    analyzer on the card launches the kernel every hop and, one step at a
+    time from the CPU's carry, matches the CPU.  Runs of many hops part: at
+    this rate the correlation peak is 16 times flatter per sample, so two
+    f32 paths' refined positions differ by hundredths of a sample and their
+    discrete decisions flip on near-ties.  One such tie is held apart: two
+    peaks one period apart that score alike (the 440 Hz stream at hop 117,
+    where the plain path on the CPU and the JAX package part too).  A
+    capture that lands a whole period from the CPU's, same phase, counts as
+    that flip; the lock and period must still agree."""
+    rate = 192_000.0
+    osc = tosc.OscilloscopeAnalyzer(tosc.OscilloscopeConfig(sample_rate=rate))
+    assert osc.corr_fft == 32768
+    b, hops = osc.config.block_frames, 170
+    t = np.arange(hops * b) / rate
+    rng = np.random.default_rng(192)
+    left = np.stack([0.6 * np.sin(2 * np.pi * 110.0 * t), 0.5 * np.sin(2 * np.pi * 440.0 * t)])
+    audio = np.stack([left, 0.8 * left], -1) + 1e-4 * rng.standard_normal((2, hops * b, 2))
+    audio = torch.from_numpy(audio.astype(np.float32))
+    carry = osc.init(2, device="cpu")
+    before = tcorr.corr_dots_sums_ring.launches
+    keys = ("has_period", "missed", "reference", "pspec_re", "pspec_im")
+    worst = {"position": 0.0, "reference": 0.0, "period": 0.0}
+    locked = flips = 0
+    for i in range(hops):
+        blk = audio[:, i * b : (i + 1) * b]
+        on_card, snap_card = osc.step(_carry_to(carry, card), blk.to(card))
+        carry, snap = osc.step(carry, blk)
+        err = oscilloscope_errors(snap_card, snap, *({k: c[k] for k in keys} for c in (on_card, carry)))
+        gap = ((snap_card.start.cpu() - snap.start).double() + (snap_card.frac.cpu() - snap.frac).double()).abs()
+        whole = torch.round(gap / snap.period.double().clamp_min(1.0))
+        flip = snap.locked & (whole >= 1) & ((gap - whole * snap.period.double()).abs() <= position_bar(rate))
+        if bool(flip.any()):
+            flips += 1
+            assert set(err["mismatch"]) <= {"start", "samples"} and err["period"] <= 1e-4, (i, err)
+            continue
+        check_oscilloscope(err, f"192 kHz hop {i}", sample_rate=rate)
+        worst = {k: max(v, err[k]) for k, v in worst.items()}
+        locked += int(snap.locked.sum())
+    for k, v in worst.items():
+        record_property(k, v)
+    record_property("period_flips", flips)
+    assert flips <= 2
+    assert tcorr.corr_dots_sums_ring.launches == before + hops
+    assert locked > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,windows", [(4800, 0), (4802, 0), (300, 3)])
+def test_window_rows_kernel_is_exact(card, length, windows):
+    rng = np.random.default_rng(length)
+    s, n = 64, 19456
+    x = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32)).to(card)
+    shape = (s,) if windows == 0 else (s, windows)
+    starts = torch.from_numpy(rng.integers(-10, n + 10, shape).astype(np.int32)).to(card)
+    before = trows.window_rows.launches
+    got = trows.window_rows(x, starts, length)
+    assert trows.window_rows.launches == before + 1
+    assert torch.equal(got, trows.window_rows_reference(x, starts, length))
+
+
+@pytest.mark.cuda
+def test_oscilloscope_kernels_reject_bad_inputs(card):
+    ring, starts, tmpl, klen, wlen, shift = _search_inputs(card, 4)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        tcorr.corr_dots_sums_ring(ring, starts.cpu(), tmpl, klen, wlen, shift, 8192, 2401, 7200)
+    with pytest.raises(ValueError):  # a transform length not a power of two
+        tcorr.corr_dots(ring, tmpl, shift, 12000, 2401)
+    with pytest.raises(ValueError):  # not contiguous
+        trows.window_rows(ring.t().contiguous().t(), starts, 100)

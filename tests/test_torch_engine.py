@@ -122,8 +122,18 @@ def test_reduced_surround_config_matches():
 
 
 def test_carry_from_jax_continues():
-    """JAX runs 50 hops; both packages continue 30 more from its carry."""
+    """JAX runs 50 hops of the flagship plus the default oscilloscope (whose
+    carry holds a tuple of rings and host scalars); both packages continue
+    30 more from its carry."""
+    import dataclasses
+
+    from openmeters_tpu.analyzers.oscilloscope import OscilloscopeConfig as JOscConfig
+    from openmeters_tpu_torch.analyzers.oscilloscope import OscilloscopeConfig
+    from openmeters_tpu_torch.utils.parity import check_oscilloscope, oscilloscope_errors
+
     jcfg, tcfg = _configs()
+    jcfg = dataclasses.replace(jcfg, oscilloscope=JOscConfig())
+    tcfg = dataclasses.replace(tcfg, oscilloscope=OscilloscopeConfig())
     s = 3
     audio = _audio(s, 80, 2, seed=34)
     jsess = japi.AnalysisSession(JMeterEngine(jcfg), s)
@@ -132,6 +142,8 @@ def test_carry_from_jax_continues():
     carry_np = jax.device_get(jsess.carry)
     tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu")
     tsess.carry = convert.carry_from_jax(carry_np, tsess.engine)
+    assert isinstance(tsess.carry["oscilloscope"]["hist"], tuple)
+    assert tsess.carry["oscilloscope"]["origin"] == int(carry_np["oscilloscope"]["origin"])
 
     back = convert.carry_to_numpy(tsess.carry)
     flat_j = jax.tree_util.tree_leaves_with_path(carry_np)
@@ -144,20 +156,24 @@ def test_carry_from_jax_continues():
 
     for i in range(50, 80):
         blk = audio[:, i * 256 : (i + 1) * 256]
-        assert_snapshots_match(jsess.feed(blk), tsess.feed(blk), i)
+        jsnaps, tsnaps = jsess.feed(blk), tsess.feed(blk)
+        assert_snapshots_match(jsnaps, tsnaps, i)
+        check_oscilloscope(oscilloscope_errors(tsnaps["oscilloscope"], jsnaps["oscilloscope"]), f"hop {i}")
 
 
 def test_unported_analyzers_refuse():
     with pytest.raises(NotImplementedError, match="not ported"):
         MeterEngine(EngineConfig())
-    pending = dict(spectrum=None, oscilloscope=None, stereometer=None, waveform=None)
+    pending = dict(spectrum=None, stereometer=None, waveform=None)
     for name in pending:  # each pending analyzer refuses on its own
         with pytest.raises(NotImplementedError, match=f"the {name} analyzer is not ported"):
             MeterEngine(EngineConfig(**{k: v for k, v in pending.items() if k != name}))
-    # the default (reassigned) spectrogram builds
+    # the default (reassigned) spectrogram and the default oscilloscope build
     engine = MeterEngine(EngineConfig(**pending))
     assert engine.config.spectrogram.use_reassignment
-    assert set(engine.init(1, device="meta")["spectrogram"]) == {"fb", "srs"}
+    carry = engine.init(1, device="meta")
+    assert set(carry["spectrogram"]) == {"fb", "srs"}
+    assert "cap" in carry["oscilloscope"] and "snap" not in carry["oscilloscope"]
     _, tcfg = _configs()
     assert MeterEngine(tcfg).config.spectrogram.sample_rate == 48_000.0
 
@@ -214,6 +230,10 @@ def test_port_imports_no_jax():
         "cfg = EngineConfig(spectrum=None, oscilloscope=None, stereometer=None, waveform=None)\n"
         "re = api.analyze(np.ones((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
         "assert type(re[-1]['spectrogram']).__name__ == 'ReassignedColumns'\n"
+        "cfg = EngineConfig(spectrum=None, stereometer=None, waveform=None)\n"
+        "osc = api.analyze(np.ones((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
+        "assert type(osc[-1]['oscilloscope']).__name__ == 'OscilloscopeSnapshot'\n"
+        "import openmeters_tpu_torch.ops.corr, openmeters_tpu_torch.ops.rows\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
         "        or m == 'openmeters_tpu']\n"
         "print(json.dumps({'hops': len(out), 'mods': mods}))\n"

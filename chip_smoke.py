@@ -47,7 +47,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
     oscilloscope -- at S=8192 through ``AnalysisSession.feed``: 80 warm-up
     hops (the trigger's history first fills at hop 38), 200 timed with
     every output leaf folded into a device scalar, counting the search's
-    launches (one a hop) and ``window_rows``'s (two a hop), and a profile.
+    launches (one a hop) and ``window_rows``'s (two a hop), and a profile;
+14. the bin-tiled ``sliding_hop_spectra`` kernel (B1b) against its plain
+    version at S=8192, for every ``ready``: 16384/512 (one column, power),
+    16384/128 (two columns, power and codes), 4096/2048 Blackman-Harris
+    (the stencil's halo across 17 tiles); then ``sliding_hop``'s power
+    output at 8192/128; plus B1b's times at 16384/512, and the whole
+    sliding path there (the deltas' rFFT and B1b) against the direct
+    windowed rFFT;
+15. the ``three_band`` crossover kernel against its plain per-sample loop
+    at S=8192 x 2 lanes x 256 samples with NaN and infinite samples, both
+    cascade settings (bit-exact), plus the times;
+16. the spectrum slice on the card against the CPU through
+    ``AnalysisSession.feed`` (S=4, 150 spectrum hops, a reset): 16384/512 at
+    cadence 2 with each averaging mode, 16384/128 dual trace, the stock
+    16384/1024 at cadence 4;
+17. the stereometer (full band; LR4 bands with band points) and the
+    waveform (bands; RMS history) on the card against the CPU (S=8, 150
+    hops, a reset, NaN and infinite samples);
+18. the literal ``EngineConfig()`` -- all six analyzers, 8 channels -- at
+    S=8192 through ``AnalysisSession.feed``, timed and profiled as phase 13
+    (18a; the stock spectrum at cadence 4 takes the direct rFFT), then the
+    same with ``SpectrumConfig(hop_size=512)`` (18b; cadence 2, B1b on every
+    second hop: 100 launches in 200); after each, the profiled device time
+    of each analyzer alone (18b: the spectrum).
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -64,6 +87,7 @@ limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -183,7 +207,8 @@ def phase3_kernel(dev) -> dict:
     result = {}
     for label, sl, s in shapes:
         cols = sl.frames.cols_cap
-        rot_r, rot_i, upd_r, upd_i, dc = sl._tensors(dev)
+        rot_r, rot_i, dc = sl._rows(dev)
+        upd_r, upd_i = sl._updates(dev)
         norm = torch.from_numpy(
             fft_bin_normalization(window_coefficients(sl.window, sl.fft_size), sl.fft_size)
         ).to(dev)
@@ -349,27 +374,35 @@ def phase5_flagship(dev) -> int:
     return launches
 
 
-def profile_hops(label: str, session, blocks, consume, ms_per_hop: float, hops: int = 20) -> None:
-    """Kernel time by name over a short steady window, into chiprun_out/,
-    and the device's busy share: kernel time per hop over the unprofiled
-    hop time.  A profile that records no device time fails the phase."""
+def profiled(run_hop, hops: int):
+    """``run_hop(i)`` for ``hops`` hops under the profiler.  Returns the
+    device's kernel time per hop (ms): the device-side records alone (the
+    table's CPU-side rows, "Command Buffer Full" among them, carry the time
+    of the kernels under them again), and the table of time by name.  A
+    profile that records no device time fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(hops):
-            consume(session.feed(blocks[i % len(blocks)]))
+            run_hop(i)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / f"chip_smoke_profile_{label.replace(' ', '')}.txt").write_text(table)
     busy_us = sum(
         getattr(e, "device_time_total", 0.0)
         for e in prof.events()
         if e.device_type == DeviceType.CUDA
     )
-    busy_ms = busy_us / 1e3 / hops
-    check(busy_ms > 0.0, f"{label}: the profile recorded no device time")
+    check(busy_us > 0.0, "the profile recorded no device time")
+    return busy_us / 1e3 / hops, prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
+
+
+def profile_hops(label: str, session, blocks, consume, ms_per_hop: float, hops: int = 20) -> None:
+    """Kernel time by name over a short steady window, into ``OUT_DIR``,
+    and the device's busy share: kernel time per hop over the unprofiled
+    hop time."""
+    busy_ms, table = profiled(lambda i: consume(session.feed(blocks[i % len(blocks)])), hops)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"chip_smoke_profile_{label.replace(' ', '')}.txt").write_text(table)
     log(
         f"{label} kernel time {busy_ms:.4f} ms/hop of {ms_per_hop:.4f} ms/hop: device busy "
         f"{100 * busy_ms / ms_per_hop:.1f} %, idle {100 * (1 - busy_ms / ms_per_hop):.1f} % [{card_line()}]"
@@ -1040,6 +1073,405 @@ def phase13_default_s8192(dev) -> dict:
     return result
 
 
+# -- the spectrum, the stereometer and the waveform ------------------------------
+
+
+def phase14_sliding_spectra(dev) -> dict:
+    from openmeters_tpu_torch.ops.sliding_hop import (
+        sliding_hop,
+        sliding_hop_reference,
+        sliding_hop_spectra,
+        sliding_hop_spectra_reference,
+    )
+    from openmeters_tpu_torch.ops.sliding_stft import SlidingSTFT
+    from openmeters_tpu_torch.utils.level import DB_FLOOR
+    from openmeters_tpu_torch.utils.parity import SPECTRUM_AMPLITUDE
+    from openmeters_tpu_torch.utils.windows import WindowKind, fft_bin_normalization, window_coefficients
+
+    s = FLAGSHIP_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cases = [  # label, config (block = the engine's spectrum block), output modes
+        ("16384/512", SlidingSTFT(16384, 512, 512, WindowKind.HANN), (False,)),
+        ("16384/128", SlidingSTFT(16384, 128, 256, WindowKind.HANN), (False, True)),
+        ("4096/2048", SlidingSTFT(4096, 2048, 2048, WindowKind.BLACKMAN_HARRIS), (False, True)),
+        ("8192/128 (B1a)", SlidingSTFT(8192, 128, 256, WindowKind.HANN), (False,)),
+    ]
+    result = {}
+    for label, sl, modes in cases:
+        n, cols, bins = sl.fft_size, sl.frames.cols_cap, sl.bins
+        check(sl.whole_row == label.endswith("(B1a)"), f"{label}: the other hop variant")
+        norm = torch.from_numpy(fft_bin_normalization(window_coefficients(sl.window, n), n)).to(dev)
+        coeffs = tuple(float(a) for a in sl._stencil())
+        kw = dict(n=n, coeffs=coeffs, floor_db=DB_FLOOR)
+        fr, fi, deltas = hop_inputs(sl, s, cols, gen, dev)
+        rot_r, rot_i, dc = sl._rows(dev)
+        if sl.whole_row:
+            args = (fr, fi, deltas, *sl._updates(dev), rot_r, rot_i, dc, norm)
+            kern_fn, plain_fn = sliding_hop, sliding_hop_reference
+        else:
+            args = (fr, fi, torch.fft.rfft(deltas, n=n), rot_r, rot_i, dc, norm)
+            kern_fn, plain_fn = sliding_hop_spectra, sliding_hop_spectra_reference
+        for emit_codes in modes:
+            for ready in range(cols + 1):
+                kr, ki, ko = kern_fn(ready, *args, **kw, emit_codes=emit_codes)
+                rr, ri, ro = plain_fn(ready, *args, **kw, emit_codes=emit_codes)
+                torch.cuda.synchronize()
+                scale = torch.clamp_min(torch.amax(torch.hypot(rr, ri), dim=1, keepdim=True), 1e-30)
+                d = torch.maximum((kr - rr).abs(), (ki - ri).abs())
+                state_err, abs_err = float((d / scale).max()), float(d.max())
+                if emit_codes:
+                    ref = ro.to(torch.int32)
+                    dd = (ko.to(torch.int32) - ref).abs()
+                    all_valid = torch.ones(ref.shape[:2], dtype=torch.bool, device=dev)
+                    code_diff = int((dd * resolved_bins(ref, all_valid)).max())
+                    what = (f"codes max diff {code_diff} within {RESOLVED_DB:g} dB of the column peak "
+                            f"({int(dd.max())} over all bins)")
+                    check(code_diff <= 2, f"{label} ready={ready}: codes differ by {code_diff}")
+                else:
+                    peak = torch.clamp_min(ro.sqrt().amax(dim=-1, keepdim=True), 1e-30)
+                    amp_err = float(((ko.sqrt() - ro.sqrt()).abs() / peak).max())
+                    abs_err = max(abs_err, float((ko - ro).abs().max()))
+                    what = f"power: amplitude max |d| {amp_err:.3e} of the column's peak"
+                    check(amp_err <= SPECTRUM_AMPLITUDE, f"{label} ready={ready}: amplitude differs by {amp_err}")
+                log(
+                    f"phase 14 {label} S={s} cols={cols} bins={bins} ready={ready} "
+                    f"{'codes' if emit_codes else 'power'}: state max|d|/rowmax {state_err:.3e}; {what}; "
+                    f"max |d| {abs_err:.3e} [{card_line()}]"
+                )
+                check(state_err <= 1e-5, f"{label} ready={ready}: state error {state_err}")
+                if ready == 0:
+                    check(torch.equal(kr, fr) and torch.equal(ki, fi), f"{label}: held state changed")
+                if label == "16384/512" and ready == cols:
+                    result = {"max_abs_err": abs_err, "max_rel_state_err": state_err}
+                del kr, ki, ko, rr, ri, ro
+
+        if label == "16384/512":
+            # plain, kernel, kernel, plain on the same card within this run
+            reps = 20
+            kern = lambda: sliding_hop_spectra(cols, *args, **kw, emit_codes=False)  # noqa: E731, B023
+            plain = lambda: sliding_hop_spectra_reference(cols, *args, **kw, emit_codes=False)  # noqa: E731, B023
+            p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
+            result["ms"] = (k1 + k2) / 2
+            result["plain_ms"] = (p1 + p2) / 2
+            # per bin and column: slide 8, stencil 2 + 4 per reach, DC 2, power 4
+            out = kern()
+            flops = s * cols * bins * (16.0 + 4 * (len(coeffs) - 1))
+            result.update(bound(nbytes(*args, *out), flops))
+            # the library call: one rFFT of the hop's windowed frames
+            frames = torch.randn((s, cols, n), generator=gen, device=dev)
+            result["library_ms"] = time_cuda(lambda: torch.fft.rfft(frames), reps)  # noqa: B023
+            # the whole sliding path (the deltas' rFFT, then the kernel) against
+            # the direct path that the analyzer takes at fft/hop <= 16 (mean
+            # removed, window, rFFT, power), on the same card in this run
+            window = torch.from_numpy(window_coefficients(sl.window, n)).to(dev)
+
+            def sliding_path():
+                dspec = torch.fft.rfft(deltas, n=n)  # noqa: B023
+                return sliding_hop_spectra(cols, fr, fi, dspec, rot_r, rot_i, dc, norm, **kw,  # noqa: B023
+                                           emit_codes=False)
+
+            def direct_path():
+                spec = torch.fft.rfft((frames - frames.mean(dim=-1, keepdim=True)) * window)  # noqa: B023
+                return (spec.real.square() + spec.imag.square()) * norm  # noqa: B023
+
+            d1, w1, w2, d2 = (time_cuda(f, reps) for f in (direct_path, sliding_path, sliding_path, direct_path))
+            del frames, out
+            log(
+                f"phase 14 timing at 16384/512 S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"rfft of the windowed frames {result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
+                f"({result['bound_by']}); sliding path (deltas' rfft + kernel) {w1:.4f}/{w2:.4f} ms, "
+                f"direct path (mean, window, rfft, power) {d1:.4f}/{d2:.4f} ms [{card_line()}]"
+            )
+        del fr, fi, deltas, args
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase15_three_band(dev) -> dict:
+    from openmeters_tpu_torch.ops.iir import three_band_init, three_band_scan, three_band_scan_reference
+
+    s, b = FLAGSHIP_S, 256
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    clean = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
+    x = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
+    x[10, 1, 0], x[50, 2, 1], x[200, 3, 0] = float("nan"), float("inf"), float("-inf")
+    x[:, 4, 1] = float("nan")
+    result = {}
+    for cascade_n, high in ((1, False), (2, True)):
+        kw = dict(cascade_n=cascade_n, cascade_high=high)
+        # a state mid-stream: one clean block first
+        _, state = three_band_scan_reference(clean, three_band_init((s, 2), cascade_n, device=dev), 48_000.0, **kw)
+        got, gstate = three_band_scan(x, state, 48_000.0, **kw)
+        ref, rstate = three_band_scan_reference(x, state, 48_000.0, **kw)
+        torch.cuda.synchronize()
+        err = max(float((got - ref).abs().max()), float((gstate - rstate).abs().max()))
+        exact = torch.equal(got, ref) and torch.equal(gstate, rstate)
+        check(bool(torch.isfinite(got).all()), f"cascade {cascade_n}: non-finite band")
+        check(exact, f"cascade {cascade_n}: kernel differs from the plain loop by {err}")
+        kern = lambda: three_band_scan(x, state, 48_000.0, **kw)  # noqa: E731, B023
+        plain = lambda: three_band_scan_reference(x, state, 48_000.0, **kw)  # noqa: E731, B023
+        p1, k1, k2, p2 = (time_cuda(f, 3) for f in (plain, kern, kern, plain))
+        # per sample and lane, 4 cascades of biquads: 5 products and 4 sums each
+        flops = b * s * 2 * 4 * cascade_n * 9.0
+        bnd = bound(nbytes(x, state, got, gstate) + 4 * 5 * 4, flops)
+        log(
+            f"phase 15 three_band cascade {cascade_n}{' (high from the low split)' if high else ''} "
+            f"[{b}, {s}, 2] with NaN and infinite samples: bit-exact (max |d| {err:.3e}); kernel "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}) [{card_line()}]"
+        )
+        if cascade_n == 1:  # the waveform's, on the literal default's path
+            result = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                      "library_ms": None, **bnd}
+        del got, ref, gstate, rstate, state
+    del x, clean
+    torch.cuda.empty_cache()
+    return result
+
+
+def stereo_audio(s: int, n: int, seed: int, bad: bool = False) -> np.ndarray:
+    """``[s, n, 2]``: a sine per stream (50 Hz-8 kHz) plus faint noise, the
+    right at half the left plus a second tone; with ``bad`` a NaN, an inf
+    and a -inf pair early, in different streams."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48_000.0
+    f = rng.uniform(50.0, 8000.0, (s, 1))
+    left = 0.3 * np.sin(2 * np.pi * f * t) + 0.01 * rng.standard_normal((s, n))
+    right = 0.5 * left + 0.1 * np.sin(2 * np.pi * 1.7 * f * t)
+    audio = np.stack([left, right], -1).astype(np.float32)
+    if bad:
+        audio[0, 3000, 0], audio[1, 7000, 1], audio[0, 9001, :] = np.nan, np.inf, -np.inf
+    return audio
+
+
+def phase16_spectrum_slice(dev) -> None:
+    from openmeters_tpu_torch.analyzers.spectrum import AveragingMode, SpectrumConfig
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import EngineConfig, MeterEngine
+    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop_spectra
+    from openmeters_tpu_torch.utils.channels import Channel
+    from openmeters_tpu_torch.utils.parity import check_spectrum, spectrum_errors
+
+    s, b = 4, 256
+    cases = [  # label, spectrum config, engine hops (150 spectrum hops each)
+        *((f"16384/512 {m.value}", SpectrumConfig(hop_size=512, averaging=m), 300) for m in AveragingMode),
+        ("16384/128 dual trace", SpectrumConfig(hop_size=128, source=Channel.LEFT,
+                                                secondary_source=Channel.RIGHT,
+                                                averaging=AveragingMode.PEAK_HOLD), 150),
+        ("16384/1024 stock", SpectrumConfig(), 600),
+    ]
+    for label, sp, hops in cases:
+        engine = MeterEngine(EngineConfig(loudness=None, spectrogram=None, oscilloscope=None, stereometer=None,
+                                          waveform=None, channels=2, spectrum=sp))
+        r, an = engine.spectrum_cadence, engine.analyzers["spectrum"]
+        audio = stereo_audio(s, hops * b, SEED + hops + len(label))
+        reset = np.array([False, True, False, False])
+        reset_hop = (hops * 3 // 5) | 1  # mid spectrum hop where r > 1
+        sessions = {d: AnalysisSession(engine, s, d) for d in (dev, "cpu")}
+        before = sliding_hop_spectra.launches
+        worst = {"amplitude": 0.0, "db": 0.0}
+        flips = updated = 0
+        for i in range(hops):
+            blk = audio[:, i * b : (i + 1) * b]
+            snaps = {d: sess.feed(blk, reset if i == reset_hop else None) for d, sess in sessions.items()}
+            if "spectrum" not in snaps["cpu"]:
+                continue
+            err = spectrum_errors(
+                sessions[dev].carry["spectrum"]["smoothed"], sessions["cpu"].carry["spectrum"]["smoothed"],
+                snaps[dev]["spectrum"], snaps["cpu"]["spectrum"], an.state_floor,
+            )
+            check_spectrum(err, f"phase 16 {label} hop {i}")
+            worst = {k: max(v, err[k]) for k, v in worst.items()}
+            flips += err["floor_flips"]
+            if (i + 1) % r == 0:
+                updated += int(snaps["cpu"]["spectrum"].updated.sum())
+        launches = sliding_hop_spectra.launches - before
+        want = hops // r if an.use_sliding and not an._sliding.whole_row else 0
+        log(
+            f"phase 16 spectrum {label} card vs cpu, S={s}, {hops} hops ({hops // r} spectrum hops, "
+            f"cadence {r}, {'sliding' if an.use_sliding else 'direct rFFT'}), reset at hop {reset_hop}: "
+            f"amplitude max |d| {worst['amplitude']:.3e} of the trace's peak, dB max |d| {worst['db']:.3e} "
+            f"within 50 dB of the peak, {flips} bins zeroed at the state floor on one side only, "
+            f"{updated} updated stream-hops, B1b launches {launches} [{card_line()}]"
+        )
+        check(flips <= 2, f"{label}: {flips} floor flips")
+        check(updated > 0, f"{label}: no spectrum column")
+        check(launches == want, f"{label}: B1b launched {launches} times, want {want}")
+
+
+def phase17_stereo_waveform(dev) -> None:
+    from openmeters_tpu_torch.analyzers.stereometer import StereometerAnalyzer, StereometerConfig
+    from openmeters_tpu_torch.analyzers.waveform import WaveformAnalyzer, WaveformConfig
+    from openmeters_tpu_torch.utils.parity import check_snapshot, snapshot_errors
+
+    s, hops, b = 8, 150, 256
+    audio = torch.from_numpy(stereo_audio(s, hops * b, SEED + 17, bad=True))
+    reset = torch.zeros((s,), dtype=torch.bool)
+    reset[[1, 5]] = True
+    cases = [
+        ("stereometer", StereometerAnalyzer(StereometerConfig())),
+        ("stereometer bands + band points", StereometerAnalyzer(StereometerConfig(emit_band_points=True))),
+        ("waveform", WaveformAnalyzer(WaveformConfig())),
+        ("waveform RMS history", WaveformAnalyzer(WaveformConfig(track_history=True))),
+    ]
+    for label, an in cases:
+        carries = {d: an.init(s, device=d) for d in (dev, "cpu")}
+        worst = {}
+        for i in range(hops):
+            blk = audio[:, i * b : (i + 1) * b]
+            snaps = {}
+            for d in carries:
+                rm = reset.to(d) if i == 90 else None
+                carries[d], snaps[d] = an.step(carries[d], blk.to(d), reset_mask=rm)
+            err = snapshot_errors(snaps[dev], snaps["cpu"])
+            check_snapshot(err, f"phase 17 {label} hop {i}")
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in err.items() if k != "mismatch"}
+        log(
+            f"phase 17 {label} card vs cpu, S={s}, {hops} hops, reset at hop 90, NaN and infinite samples: "
+            f"exact fields equal; " + ", ".join(f"{k} max |d| {v:.3e}" for k, v in worst.items())
+            + f" [{card_line()}]"
+        )
+
+
+ANALYZERS = ("loudness", "spectrogram", "spectrum", "oscilloscope", "stereometer", "waveform")
+
+
+def analyzer_breakdown(label: str, dev, cfg, blocks, names, hops: int = 20, warmup: int = 40) -> dict:
+    """Each analyzer of ``names`` alone: an engine of ``cfg`` with the others
+    off, through ``AnalysisSession.feed`` at S=8192, ``warmup`` hops, then
+    the device's kernel time per hop over ``hops`` profiled hops (the
+    engine's stereo fold included; outputs not consumed)."""
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import MeterEngine
+
+    out = {}
+    for name in names:
+        one = MeterEngine(dataclasses.replace(cfg, **{f: None for f in ANALYZERS if f != name}))
+        session = AnalysisSession(one, FLAGSHIP_S, dev)
+        for i in range(warmup):
+            session.feed(blocks[i % len(blocks)])
+        out[name], _ = profiled(lambda i: session.feed(blocks[(warmup + i) % len(blocks)]), hops)  # noqa: B023
+        del session
+        torch.cuda.empty_cache()
+    log(
+        f"{label} each analyzer alone, device kernel time in ms/hop over {hops} profiled hops after "
+        f"{warmup} (the engine's fold included, outputs not consumed): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + f"; sum {sum(out.values()):.4f} [{card_line()}]"
+    )
+    return out
+
+
+def phase18_literal_default(dev, label: str, spectrum=None, expect_b1b: int = 0,
+                            breakdown: tuple = ANALYZERS) -> dict:
+    """The literal ``EngineConfig()`` (with ``spectrum`` in place of the stock
+    spectrum if given) at S=8192 through ``AnalysisSession.feed``: 80
+    warm-up hops, 200 timed with every output leaf folded into a device
+    scalar (the spectrum's on the hops that make it), counting each kernel's
+    launches, then a profile, then ``breakdown``'s analyzers each alone."""
+    from openmeters_tpu_torch.api import AnalysisSession
+    from openmeters_tpu_torch.engine import EngineConfig, MeterEngine
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.iir import three_band_scan
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop, sliding_hop_spectra
+
+    cfg = EngineConfig() if spectrum is None else dataclasses.replace(EngineConfig(), spectrum=spectrum)
+    engine = MeterEngine(cfg)
+    r = engine.spectrum_cadence
+    s, b, warmup, channels = FLAGSHIP_S, 256, 80, engine.config.channels
+    torch.cuda.reset_peak_memory_stats()
+    session = AnalysisSession(engine, s, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    bank = 16  # distinct blocks made on the card, fed in turn
+    t = torch.arange(bank * b, device=dev, dtype=torch.float32) / 48_000.0
+    freqs = torch.exp(torch.rand((s, 1, 1), generator=gen, device=dev) * math.log(2000.0 / 40.0)) * 40.0
+    audio = 0.3 * torch.sin(2 * torch.pi * freqs * t[None, :, None]) + 0.05 * torch.randn(
+        (s, bank * b, 2), generator=gen, device=dev
+    )
+    # two channels of audio, the rest of the engine's 8 silent (as analyze pads)
+    blocks = [torch.nn.functional.pad(audio[:, i * b : (i + 1) * b], (0, channels - 2)).contiguous()
+              for i in range(bank)]
+    del audio
+
+    sink = torch.zeros((), device=dev, dtype=torch.float64)
+    locked = torch.zeros((), device=dev, dtype=torch.int64)
+    last_spectrum = None
+    spectra = 0
+
+    def consume(snaps):
+        # every output leaf into one device scalar; the spectrum snapshot the
+        # session holds between spectrum hops only when it is new
+        nonlocal sink, locked, last_spectrum, spectra
+        acc = torch.zeros((), device=dev, dtype=torch.float64)
+        for name, snap in snaps.items():
+            if name == "spectrum":
+                if snap is last_spectrum:
+                    continue
+                last_spectrum = snap
+                spectra += 1
+            for f in snap._fields:
+                acc = acc + getattr(snap, f).sum(dtype=torch.float64)
+        sink = sink + acc
+        locked = locked + snaps["oscilloscope"].locked.sum()
+
+    for i in range(warmup):
+        consume(session.feed(blocks[i % bank]))
+    torch.cuda.synchronize()
+    locked.zero_()
+    spectra = 0
+
+    counters = (reassigned_sliding_hop, corr_dots_sums_ring, window_rows, three_band_scan,
+                sliding_hop_spectra, sliding_hop)
+    for c in counters:
+        c.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIMED_HOPS):
+        snaps = session.feed(blocks[(warmup + i) % bank])
+        consume(snaps)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+
+    ms = start.elapsed_time(stop) / TIMED_HOPS
+    realtime = s * (b / 48_000.0) / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    sp = engine.analyzers["spectrum"]
+    log(
+        f"{label} EngineConfig() {'' if spectrum is None else 'with the spectrum at hop 512 '}S={s}, "
+        f"{channels} channels, spectrum {sp.config.fft_size}/{sp.config.hop_size} at cadence {r} "
+        f"({'sliding' if sp.use_sliding else 'direct rFFT'}): {ms:.4f} ms/hop (CUDA events; host wall "
+        f"{1e3 * wall / TIMED_HOPS:.4f} ms/hop), {realtime:.1f} streams realtime, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches {launches}, {spectra} spectrum snapshots, {int(locked)} locked "
+        f"stream-hops of {s * TIMED_HOPS} [{card_line()}]"
+    )
+    want = {"reassigned_sliding_hop": TIMED_HOPS, "corr_dots_sums_ring": TIMED_HOPS,
+            "window_rows": 2 * TIMED_HOPS, "sliding_hop_spectra": expect_b1b, "sliding_hop": 0,
+            # the waveform's crossover; the default stereometer runs no bands
+            "three_band_scan": TIMED_HOPS}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(spectra == TIMED_HOPS // r, f"{spectra} spectrum snapshots, want {TIMED_HOPS // r}")
+    check(bool(torch.isfinite(sink)), "non-finite output")
+    check(int(locked) > s * TIMED_HOPS // 2, f"only {int(locked)} locked stream-hops")
+    check(bool(snaps["spectrum"].updated.all()), "the last spectrum hop made no column")
+    check(bool(snaps["waveform"].col_valid.any()), "no waveform column")
+    check(bool(snaps["stereometer"].points_valid.all()), "stereometer points not valid")
+    lo = snaps["loudness"]
+    check(bool((lo.integrated_lufs > engine.config.loudness.floor_db).all()), "integrated loudness at the floor")
+    profile_hops(label, session, blocks, consume, ms)
+    del session
+    torch.cuda.empty_cache()
+    alone = analyzer_breakdown(label, dev, cfg, blocks, breakdown)
+    result = {"ms_per_hop": ms, "launches": launches, "peak_gib": peak / 2**30, "alone": alone}
+    del blocks
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1071,6 +1503,16 @@ def main() -> int:
     rows_kernel = phase11_rows(dev)
     phase12_osc_slice(dev)
     osc_launches = phase13_default_s8192(dev)["launches"]
+    spectra_kernel = phase14_sliding_spectra(dev)
+    band_kernel = phase15_three_band(dev)
+    phase16_spectrum_slice(dev)
+    phase17_stereo_waveform(dev)
+
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig
+
+    stock = phase18_literal_default(dev, "phase 18a")["launches"]
+    sliding = phase18_literal_default(dev, "phase 18b", SpectrumConfig(hop_size=512), TIMED_HOPS // 2,
+                                      breakdown=("spectrum",))["launches"]
 
     def entry(name, source, replaces, n, k):
         return {
@@ -1097,6 +1539,11 @@ def main() -> int:
                   corr_kernels["corr_dots"]),
             entry("window_rows", "openmeters_tpu_torch/csrc/window_rows.cu",
                   "openmeters_tpu/ops/pallas_rows.py:117", osc_launches["window_rows"], rows_kernel),
+            entry("sliding_hop_spectra", "openmeters_tpu_torch/csrc/sliding_hop.cu",
+                  "openmeters_tpu/ops/pallas_sliding.py:514", sliding["sliding_hop_spectra"], spectra_kernel),
+            # no pallas_call: the JAX package runs this recurrence as a lax.scan
+            entry("three_band", "openmeters_tpu_torch/csrc/three_band.cu",
+                  "openmeters_tpu/ops/iir.py:154", stock["three_band_scan"], band_kernel),
         ],
     }))
     print(card_line())

@@ -4,8 +4,9 @@
 - **Classic**: DC-removed, windowed, zero-padded rFFT per hop; per-bin power
   packed to u16 codes over the fixed [-144, +12] dB domain.  Unpadded
   power-of-two FFTs with ``hop <= fft/2`` ride the sliding DFT
-  (``ops/sliding_stft.py``); every other config takes one ``torch.fft.rfft``
-  per column.
+  (``ops/sliding_stft.py``: the B1a hop for small ``[hop, bins]``, the B1b
+  hop on rFFT'd delta spectra past that, as on the TPU); every other
+  config takes one ``torch.fft.rfft`` per column.
 - **Reassigned** (the default): per column the analytic signal over
   ``hilbert_len = next_pow2(2 * window)`` samples, the spectra windowed by
   h, dh/dt and (t - c) h, and per bin the frequency correction
@@ -183,7 +184,7 @@ class SpectrogramAnalyzer:
             out = self._gated(info, self._reassigned)
         elif self.use_sliding:
             new_carry["sdft"], codes = self._sliding.step_fused(
-                carry["sdft"], info, self._norm(block.device), DB_FLOOR
+                carry["sdft"], info, self._norm(block.device), DB_FLOOR, emit_codes=True
             )
             out = ClassicColumns(codes=codes, valid=info["valid"])
         else:

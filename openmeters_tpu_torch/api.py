@@ -33,6 +33,14 @@ class AnalysisSession:
                 self.n_streams, channels=2, pad_channels=self.engine.config.channels
             )
         self.meta = StreamMeta(*(torch.as_tensor(m).to(self.device) for m in self.meta))
+        # a cadenced spectrum (hop = R engine blocks): the R blocks of the
+        # current spectrum hop are copied into a [R, S, B, C] buffer on the
+        # device (a copy, so a caller may refill its own block), and the
+        # newest spectrum snapshot is held between spectrum hops
+        self._pending_blocks: torch.Tensor | None = None
+        self._pending_resets: torch.Tensor | None = None  # [R, S], once a hop carries a mask
+        self._n_pending = 0
+        self._held_spectrum = None
 
     def feed(self, block, reset_mask=None) -> dict:
         """One hop of ``[n_streams, block_frames, channels]`` audio."""
@@ -44,6 +52,27 @@ class AnalysisSession:
             # the engine's oscilloscope keeps capture metadata only; offline
             # analysis reads the trace windows every hop
             snaps["oscilloscope"] = self.engine.extract_oscilloscope(self.carry)
+        r = self.engine.spectrum_cadence
+        if r > 1:
+            if self._pending_blocks is None:
+                self._pending_blocks = torch.empty((r, *block.shape), device=self.device)
+            self._pending_blocks[self._n_pending].copy_(block)
+            if reset_mask is not None:
+                if self._pending_resets is None:
+                    self._pending_resets = torch.zeros((r, self.n_streams), dtype=torch.bool,
+                                                       device=self.device)
+                self._pending_resets[self._n_pending].copy_(reset_mask)
+            self._n_pending += 1
+            if self._n_pending == r:
+                # the spectrum hop takes the OR of its engine hops' masks
+                resets = None if self._pending_resets is None else self._pending_resets.any(dim=0)
+                self.carry["spectrum"], self._held_spectrum = self.engine.spectrum_step(
+                    self.carry["spectrum"], self._pending_blocks, self.meta, resets
+                )
+                self._n_pending = 0
+                self._pending_resets = None
+            if self._held_spectrum is not None:
+                snaps["spectrum"] = self._held_spectrum
         return snaps
 
     def run(self, audio, collect: bool = True) -> list[dict]:

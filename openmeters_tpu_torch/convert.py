@@ -2,8 +2,11 @@
 
 The meters hold no weights: what crosses between the JAX package and this
 one is the engine carry.  The JAX carry comes in as numpy arrays, with the
-shared scalars as 0-d arrays; here those scalars are host ints (or bools)
-and everything else is a tensor.  Both trees nest dicts and tuples.
+shared scalars as 0-d arrays; here those scalars are host ints (or bools):
+ring origins and hop counters, the sliding states' ``count`` and
+``anchored``, the waveform's ``ring_head``.  Everything else is a tensor.
+Both trees nest dicts and tuples.  A sliding-DFT state that the JAX
+package stores padded to its kernel's 512-bin tiles is cut to ``bins``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ def carry_from_jax(carry_np: dict, engine, device=None) -> dict:
             return int(arr)
         if arr.ndim != tmpl.ndim:
             raise ValueError(f"{path}: rank {arr.ndim} != {tmpl.ndim}")
+        bins = tmpl.shape[-1]
+        if path.rsplit("/", 2)[-2:] in (["sdft", "re"], ["sdft", "im"]) and arr.shape[-1] > bins:
+            arr = arr[..., :bins]  # the JAX kernel's tile padding
         return torch.tensor(arr, dtype=tmpl.dtype, device=device)
 
     return convert(carry_np, _template(engine), "")

@@ -106,13 +106,22 @@ def load_library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.sliding_hop_launch.argtypes = [
                 p, p, p, p, p, p, p, p, p,  # fr fi deltas upd_r upd_i rot_r rot_i dc norm
-                p, p, p,  # fr_out fi_out codes
+                p, p, p,  # fr_out fi_out out
                 i, i, i, i, i,  # S cols hop bins ready
                 f, f, f, f, f, i, i,  # inv_n a0 h1 h2 h3 reach dc_bins
-                f, f,  # floor_db store_scale
+                f, f, i,  # floor_db store_scale emit_codes
                 p,  # stream
             ]
             lib.sliding_hop_launch.restype = ctypes.c_int
+            lib.sliding_hop_spectra_launch.argtypes = [
+                p, p, p, p, p, p, p,  # fr fi dspec rot_r rot_i dc norm
+                p, p, p,  # fr_out fi_out out
+                i, i, i, i,  # S cols bins ready
+                f, f, f, f, f, i, i,  # inv_n a0 h1 h2 h3 reach dc_bins
+                f, f, i,  # floor_db store_scale emit_codes
+                p,  # stream
+            ]
+            lib.sliding_hop_spectra_launch.restype = ctypes.c_int
             lib.reassigned_hop_launch.argtypes = [
                 *[p] * 16,  # eight states in, eight out
                 p, p, p,  # dx dh upd
@@ -144,6 +153,8 @@ def load_library() -> ctypes.CDLL:
             lib.corr_search_launch.restype = ctypes.c_int
             lib.window_rows_launch.argtypes = [p, p, p, i, i, i, i, p]  # x starts out rows n windows length stream
             lib.window_rows_launch.restype = ctypes.c_int
+            lib.three_band_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]  # x state coeffs bands state_out T L cascade_n high_from_al stream
+            lib.three_band_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -14,11 +14,20 @@ heavily and an f32 update drifts to ~5e-6 of the output's scale within a
 few hops, against ~1e-7 with the update in float64 (the state is stored
 f32, and ``G s + H X`` stays f32).  :func:`biquad_cascade_scan` is the
 plain per-sample recurrence, kept as a cross-check.
+
+The stereometer's and the waveform's three-band crossover runs the
+per-sample recurrence, with each biquad's non-finite reset:
+:func:`three_band_scan` launches ``csrc/three_band.cu`` for CUDA tensors
+and runs :func:`three_band_scan_reference` for CPU tensors.  Its lifted
+form would replace that reset with input sanitising, and the stereometer
+feeds it raw samples.
 """
 
 from __future__ import annotations
 
+import enum
 import functools
+import math
 
 import numpy as np
 import torch
@@ -122,3 +131,155 @@ def lifted_iir_scan(x, state, sections, lift: int = 32):
         s = (f @ s.double() + k @ x_blk.double()).to(torch.float32)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
     return y.reshape(t, *lanes), s.reshape(state.shape)
+
+
+# -- the three-band crossover --------------------------------------------------
+
+
+class FilterKind(enum.Enum):
+    LOW_PASS = "low_pass"
+    HIGH_PASS = "high_pass"
+
+
+def biquad_rbj(kind: FilterKind, sample_rate: float, frequency: float) -> np.ndarray:
+    """RBJ biquad (Q = 1/sqrt(2)) as ``[b0, b1, b2, a1, a2]`` float64, the
+    frequency ratio clamped to [1e-6, 0.49]."""
+    ratio = min(max(frequency / sample_rate, 1.0e-6), 0.49)
+    w = 2.0 * math.pi * ratio
+    sin, cos = math.sin(w), math.cos(w)
+    alpha = sin / math.sqrt(2.0)
+    if kind is FilterKind.LOW_PASS:
+        gain, sign = 1.0 - cos, 1.0
+    else:
+        gain, sign = 1.0 + cos, -1.0
+    inv_a0 = 1.0 / (1.0 + alpha)
+    return np.array(
+        [
+            gain * 0.5 * inv_a0,
+            gain * inv_a0 * sign,
+            gain * 0.5 * inv_a0,
+            -2.0 * cos * inv_a0,
+            (1.0 - alpha) * inv_a0,
+        ],
+        np.float64,
+    )
+
+
+def _crossover_coeffs(sample_rate: float, splits, cascade_n: int):
+    """The four crossover filters: LP at the low split, HP at the low
+    split, LP at the high split, HP at the high split, each a cascade of
+    ``cascade_n`` identical biquads (LR4 when ``cascade_n == 2``)."""
+    low, high = splits
+    kinds = [
+        (FilterKind.LOW_PASS, low),
+        (FilterKind.HIGH_PASS, low),
+        (FilterKind.LOW_PASS, high),
+        (FilterKind.HIGH_PASS, high),
+    ]
+    return tuple(
+        tuple(tuple(biquad_rbj(kind, sample_rate, freq).tolist()) for _ in range(cascade_n))
+        for kind, freq in kinds
+    )
+
+
+def three_band_init(lane_shape, cascade_n: int, device=None) -> torch.Tensor:
+    """Zero state for :func:`three_band_scan`: ``[4, cascade_n, 2, lanes...]``."""
+    return torch.zeros((4, cascade_n, 2, *lane_shape), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _crossover_tensor(sample_rate: float, splits, device: torch.device) -> torch.Tensor:
+    """``[4, 5]`` float32: each filter's ``(b0, b1, b2, a1, a2)`` (the
+    sections of a cascade are identical)."""
+    f = _crossover_coeffs(sample_rate, splits, 1)
+    return torch.tensor([c[0] for c in f], dtype=torch.float32, device=device)
+
+
+def _biquad_step(c, x, z0, z1):
+    """One DF2T biquad sample on ``[F, lanes]`` with coefficients ``c``, five
+    ``[F, 1]`` tensors.  A non-finite output resets the state and emits 0."""
+    b0, b1, b2, a1, a2 = c
+    y = b0 * x + z0
+    nz0 = b1 * x - a1 * y + z1
+    nz1 = b2 * x - a2 * y
+    ok = torch.isfinite(y)
+    return torch.where(ok, y, 0.0), torch.where(ok, nz0, 0.0), torch.where(ok, nz1, 0.0)
+
+
+def three_band_scan_reference(x, state, sample_rate: float, splits=(200.0, 2000.0),
+                              cascade_n: int = 1, cascade_high: bool = False):
+    """Plain PyTorch version of :func:`three_band_scan`, one sample at a
+    time, the two filters of each stage side by side."""
+    t, lanes = x.shape[0], x.shape[1:]
+    xm = x.reshape(t, -1).to(torch.float32)
+    coeffs = _crossover_tensor(float(sample_rate), tuple(splits), x.device)
+    stages = [[coeffs[f0 : f0 + 2, i : i + 1] for i in range(5)] for f0 in (0, 2)]
+    z = state.reshape(4, cascade_n, 2, -1)
+    # per stage and section: the two filters' (z0, z1), each [2, lanes]
+    zs = [[[z[f0 : f0 + 2, j, 0], z[f0 : f0 + 2, j, 1]] for j in range(cascade_n)] for f0 in (0, 2)]
+
+    def stage(st, inp):
+        for j in range(cascade_n):
+            inp, zs[st][j][0], zs[st][j][1] = _biquad_step(stages[st], inp, *zs[st][j])
+        return inp
+
+    out = []
+    for i in range(t):
+        xt = xm[i]
+        low, al = stage(0, xt.expand(2, -1))
+        mid, high = stage(1, torch.stack([al, al if cascade_high else xt]))
+        out.append(torch.stack([low, mid, high]))
+    new_state = torch.stack(
+        [torch.stack([torch.stack(zs[st][j], dim=1) for j in range(cascade_n)], dim=1) for st in (0, 1)]
+    )  # [stage, filter, cascade, 2, lanes]
+    new_state = new_state.reshape(4, cascade_n, 2, *lanes)
+    return torch.stack(out).reshape(t, 3, *lanes), new_state
+
+
+def three_band_scan(x, state, sample_rate: float, splits=(200.0, 2000.0),
+                    cascade_n: int = 1, cascade_high: bool = False):
+    """Three-way crossover over time-major ``x [T, lanes...]``:
+    ``low = LP_lo(x)``, ``al = HP_lo(x)``, ``mid = LP_hi(al)``,
+    ``high = HP_hi(al if cascade_high else x)``, every biquad resetting its
+    state and emitting 0 on a non-finite output.  ``cascade_n=2,
+    cascade_high=True`` is the stereometer's LR4 splitter; ``cascade_n=1,
+    cascade_high=False`` the waveform's.
+
+    ``state``: ``[4, cascade_n, 2, lanes...]``.  Returns ``(bands [T, 3,
+    lanes...], new_state)``.  Replaces the JAX package's ``lax.scan``
+    (``ops/iir.py::three_band_scan``; no ``pallas_call`` there).
+    """
+    if x.device.type == "cpu":
+        return three_band_scan_reference(x, state, sample_rate, splits, cascade_n, cascade_high)
+    if x.device.type != "cuda":
+        raise ValueError(f"three_band_scan runs on cpu or cuda tensors, not {x.device}")
+    t, lanes = x.shape[0], x.shape[1:]
+    n = math.prod(lanes)
+    want = (4, cascade_n, 2, *lanes)
+    for name, v, shape in (("x", x, tuple(x.shape)), ("state", state, want)):
+        if v.dtype != torch.float32 or v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"three_band_scan {name}: want contiguous float32 on {x.device}")
+        if tuple(v.shape) != shape:
+            raise ValueError(f"three_band_scan {name}: want {shape}, got {tuple(v.shape)}")
+    if cascade_n not in (1, 2):
+        raise ValueError(f"three_band_scan: cascade_n {cascade_n}, want 1 or 2")
+
+    from openmeters_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    coeffs = _crossover_tensor(float(sample_rate), tuple(splits), x.device)
+    bands = torch.empty((t, 3, *lanes), dtype=torch.float32, device=x.device)
+    new_state = torch.empty_like(state)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.three_band_launch(
+            x.data_ptr(), state.data_ptr(), coeffs.data_ptr(), bands.data_ptr(),
+            new_state.data_ptr(), t, n, cascade_n, int(cascade_high), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"three_band kernel launch failed: cudaError {rc}")
+    three_band_scan.launches += 1
+    return bands, new_state
+
+
+three_band_scan.launches = 0

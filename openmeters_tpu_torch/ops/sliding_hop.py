@@ -1,15 +1,22 @@
-"""The sliding-DFT spectrogram hop: CUDA kernel wrapper and plain version.
+"""The sliding-DFT hop: CUDA kernel wrappers and plain versions.
 
-Replaces ``openmeters_tpu/ops/pallas_sliding.py::sliding_hop`` (whole-row
-variant).  For each of ``cols`` columns in order: slide and rotate the
-``[S, bins]`` spectrum state by that column's sample deltas (held when
+Replaces ``openmeters_tpu/ops/pallas_sliding.py::sliding_hop``, both its
+variants.  For each of ``cols`` columns in order: slide and rotate the
+``[S, bins]`` spectrum state by that column's delta spectrum (held when
 ``k >= ready``), apply the cosine-sum window as a frequency-domain stencil
-with hermitian edge reflection, remove the DC mean, take power, and pack
-dB to uint16 codes over [-144, +12] dB.
+with hermitian edge reflection, remove the DC mean, take power, and emit it
+as float32 or packed as dB to uint16 codes over [-144, +12] dB.
 
-:func:`sliding_hop` launches ``csrc/sliding_hop.cu`` for CUDA tensors and
-runs :func:`sliding_hop_reference` for CPU tensors; on any other device it
-raises.  ``sliding_hop.launches`` counts kernel launches.
+- :func:`sliding_hop` (the whole-row variant, "B1a") computes the delta
+  spectra itself from the ``[S, cols, hop]`` sample deltas and the
+  ``[hop, bins]`` DFT update matrices.
+- :func:`sliding_hop_spectra` (the bin-tiled variant, "B1b") takes them
+  precomputed, ``[S, cols, bins]`` complex64 (an rFFT of the deltas), for
+  configs whose update matrices are too large to stream.
+
+Both launch ``csrc/sliding_hop.cu`` (two instances of one kernel) for CUDA
+tensors and run their plain versions for CPU tensors; on any other device
+they raise.  ``.launches`` on each counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -49,32 +56,65 @@ def window_stencil(fr, fi, coeffs):
     return wr, wi
 
 
-def sliding_hop_reference(
-    ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
-    *, n: int, coeffs: tuple, floor_db: float,
-):
-    """Plain PyTorch version of the hop.  Same arguments as
-    :func:`sliding_hop`; returns ``(fr2, fi2, codes [S, cols, bins] uint16)``."""
-    cols = deltas.shape[1]
-    dr = torch.matmul(deltas, upd_r)  # [S, cols, bins]
-    di = torch.matmul(deltas, upd_i)
+def _slide_columns(ready, fr, fi, dr, di, rot_r, rot_i, dc_corr, norm, n, coeffs,
+                   floor_db, emit_codes):
+    """The column loop shared by both plain versions, from the delta
+    spectra ``dr, di [S, cols, bins]``."""
     out = []
-    for k in range(cols):
+    for k in range(dr.shape[1]):
         if k < ready:
             tr = fr + dr[:, k]
             ti = fi + di[:, k]
             fr, fi = tr * rot_r - ti * rot_i, tr * rot_i + ti * rot_r
         wr, wi = window_stencil(fr, fi, coeffs)
         wr = wr - fr[:, 0:1] * (1.0 / n) * dc_corr
-        out.append(pack_classic_db(power_to_db((wr * wr + wi * wi) * norm, floor_db)))
+        p = (wr * wr + wi * wi) * norm
+        out.append(pack_classic_db(power_to_db(p, floor_db)) if emit_codes else p)
     return fr, fi, torch.stack(out, dim=1)
+
+
+def sliding_hop_reference(
+    ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
+    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool = True,
+):
+    """Plain PyTorch version of :func:`sliding_hop`, same arguments and
+    results."""
+    dr = torch.matmul(deltas, upd_r)  # [S, cols, bins]
+    di = torch.matmul(deltas, upd_i)
+    return _slide_columns(ready, fr, fi, dr, di, rot_r, rot_i, dc_corr, norm, n, coeffs,
+                          floor_db, emit_codes)
+
+
+def sliding_hop_spectra_reference(
+    ready, fr, fi, dspec, rot_r, rot_i, dc_corr, norm,
+    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool,
+):
+    """Plain PyTorch version of :func:`sliding_hop_spectra`, same
+    arguments and results."""
+    return _slide_columns(ready, fr, fi, dspec.real, dspec.imag, rot_r, rot_i, dc_corr, norm,
+                          n, coeffs, floor_db, emit_codes)
+
+
+def _check(tensors: dict, device, what: str) -> None:
+    for name, (x, shape, dtype) in tensors.items():
+        if x.device != device or x.dtype != dtype:
+            raise ValueError(f"{what} {name}: want {dtype} on {device}, got {x.dtype} on {x.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{what} {name}: want contiguous {shape}, got {tuple(x.shape)}")
+
+
+def _window_args(coeffs: tuple) -> tuple:
+    """``(a0, h1, h2, h3, reach)`` for the kernel's stencil."""
+    reach = len(coeffs) - 1
+    halves = [0.5 * float(a) for a in coeffs[1:]] + [0.0] * (MAX_REACH - reach)
+    return (float(coeffs[0]), *halves, reach)
 
 
 def sliding_hop(
     ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
-    *, n: int, coeffs: tuple, floor_db: float,
+    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool = True,
 ):
-    """One hop of the sliding-DFT spectrogram.
+    """One hop of the sliding DFT from sample deltas (B1a).
 
     Args:
       ready: host int, columns whose slide applies this hop.
@@ -84,30 +124,27 @@ def sliding_hop(
       rot_r, rot_i, dc_corr, norm: ``[bins]`` rows; ``dc_corr`` is zero
         past bin ``len(coeffs) - 1``.
       n: FFT size; coeffs: cosine-sum window coefficients (at most 4).
+      emit_codes: uint16 dB codes if true, else float32 power.
 
-    Returns ``(fr2, fi2, codes)``, codes ``[S, cols, bins]`` uint16.
+    Returns ``(fr2, fi2, out)``, ``out`` ``[S, cols, bins]``.
     """
+    kw = dict(n=n, coeffs=coeffs, floor_db=floor_db, emit_codes=emit_codes)
     if fr.device.type == "cpu":
         return sliding_hop_reference(
-            ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
-            n=n, coeffs=coeffs, floor_db=floor_db,
+            ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm, **kw
         )
     if fr.device.type != "cuda":
         raise ValueError(f"sliding_hop runs on cpu or cuda tensors, not {fr.device}")
     s, bins = fr.shape
     _, cols, hop = deltas.shape
-    tensors = {
-        "fr": (fr, (s, bins)), "fi": (fi, (s, bins)),
-        "deltas": (deltas, (s, cols, hop)),
-        "upd_r": (upd_r, (hop, bins)), "upd_i": (upd_i, (hop, bins)),
-        "rot_r": (rot_r, (bins,)), "rot_i": (rot_i, (bins,)),
-        "dc_corr": (dc_corr, (bins,)), "norm": (norm, (bins,)),
-    }
-    for name, (x, shape) in tensors.items():
-        if x.device != fr.device or x.dtype != torch.float32:
-            raise ValueError(f"{name}: want float32 on {fr.device}, got {x.dtype} on {x.device}")
-        if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {shape}, got {tuple(x.shape)}")
+    f32 = torch.float32
+    _check({
+        "fr": (fr, (s, bins), f32), "fi": (fi, (s, bins), f32),
+        "deltas": (deltas, (s, cols, hop), f32),
+        "upd_r": (upd_r, (hop, bins), f32), "upd_i": (upd_i, (hop, bins), f32),
+        "rot_r": (rot_r, (bins,), f32), "rot_i": (rot_i, (bins,), f32),
+        "dc_corr": (dc_corr, (bins,), f32), "norm": (norm, (bins,), f32),
+    }, fr.device, "sliding_hop")
     reach = len(coeffs) - 1
     if reach > MAX_REACH or hop % 4 or s > 8 * 65535:
         raise ValueError(f"unsupported: reach {reach}, hop {hop}, streams {s}")
@@ -117,23 +154,80 @@ def sliding_hop(
     lib = load_library()
     fr2 = torch.empty_like(fr)
     fi2 = torch.empty_like(fi)
-    codes = torch.empty((s, cols, bins), dtype=torch.uint16, device=fr.device)
-    halves = [0.5 * float(a) for a in coeffs[1:]] + [0.0] * (MAX_REACH - reach)
+    out = torch.empty((s, cols, bins), dtype=torch.uint16 if emit_codes else f32, device=fr.device)
     with torch.cuda.device(fr.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sliding_hop_launch(
             fr.data_ptr(), fi.data_ptr(), deltas.data_ptr(),
             upd_r.data_ptr(), upd_i.data_ptr(), rot_r.data_ptr(),
             rot_i.data_ptr(), dc_corr.data_ptr(), norm.data_ptr(),
-            fr2.data_ptr(), fi2.data_ptr(), codes.data_ptr(),
+            fr2.data_ptr(), fi2.data_ptr(), out.data_ptr(),
             s, cols, hop, bins, int(ready),
-            1.0 / n, float(coeffs[0]), *halves, reach, len(coeffs),
-            float(floor_db), STORE_SCALE, stream,
+            1.0 / n, *_window_args(coeffs), len(coeffs),
+            float(floor_db), STORE_SCALE, int(emit_codes), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sliding_hop kernel launch failed: cudaError {rc}")
     sliding_hop.launches += 1
-    return fr2, fi2, codes
+    return fr2, fi2, out
 
 
 sliding_hop.launches = 0
+
+
+def sliding_hop_spectra(
+    ready, fr, fi, dspec, rot_r, rot_i, dc_corr, norm,
+    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool,
+):
+    """One hop of the sliding DFT from precomputed delta spectra (B1b).
+
+    Args:
+      ready, fr, fi, rot_r, rot_i, dc_corr, norm, n, coeffs, floor_db,
+        emit_codes: as for :func:`sliding_hop`.
+      dspec: ``[S, cols, bins]`` complex64, each column's delta spectrum
+        ``rfft(delta, n)``; the kernel reads it in place.
+
+    Returns ``(fr2, fi2, out)``, ``out`` ``[S, cols, bins]`` uint16 codes or
+    float32 power.
+    """
+    kw = dict(n=n, coeffs=coeffs, floor_db=floor_db, emit_codes=emit_codes)
+    if fr.device.type == "cpu":
+        return sliding_hop_spectra_reference(ready, fr, fi, dspec, rot_r, rot_i, dc_corr, norm, **kw)
+    if fr.device.type != "cuda":
+        raise ValueError(f"sliding_hop_spectra runs on cpu or cuda tensors, not {fr.device}")
+    s, bins = fr.shape
+    cols = dspec.shape[1]
+    f32 = torch.float32
+    _check({
+        "fr": (fr, (s, bins), f32), "fi": (fi, (s, bins), f32),
+        "dspec": (dspec, (s, cols, bins), torch.complex64),
+        "rot_r": (rot_r, (bins,), f32), "rot_i": (rot_i, (bins,), f32),
+        "dc_corr": (dc_corr, (bins,), f32), "norm": (norm, (bins,), f32),
+    }, fr.device, "sliding_hop_spectra")
+    reach = len(coeffs) - 1
+    if reach > MAX_REACH or s > 8 * 65535:
+        raise ValueError(f"unsupported: reach {reach}, streams {s}")
+
+    from openmeters_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    fr2 = torch.empty_like(fr)
+    fi2 = torch.empty_like(fi)
+    out = torch.empty((s, cols, bins), dtype=torch.uint16 if emit_codes else f32, device=fr.device)
+    with torch.cuda.device(fr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sliding_hop_spectra_launch(
+            fr.data_ptr(), fi.data_ptr(), dspec.data_ptr(),
+            rot_r.data_ptr(), rot_i.data_ptr(), dc_corr.data_ptr(), norm.data_ptr(),
+            fr2.data_ptr(), fi2.data_ptr(), out.data_ptr(),
+            s, cols, bins, int(ready),
+            1.0 / n, *_window_args(coeffs), len(coeffs),
+            float(floor_db), STORE_SCALE, int(emit_codes), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sliding_hop_spectra kernel launch failed: cudaError {rc}")
+    sliding_hop_spectra.launches += 1
+    return fr2, fi2, out
+
+
+sliding_hop_spectra.launches = 0

@@ -7,9 +7,13 @@ delta product and a phasor rotation,
                                        e^{-i 2 pi k j / N}),
 
 and the window is applied in the frequency domain (see ``ops/sliding_hop``).
-An exact ``torch.fft.rfft`` re-anchor every ``refresh_steps`` hops bounds
-f32 drift.  The hop counter ``count`` and the ``anchored`` flag are shared
-by all streams and kept as host values.
+Configs whose ``[hop, bins]`` update matrices are small take the hop that
+computes the delta products itself (B1a); the others take the delta
+spectra from ``torch.fft.rfft`` of the deltas and the hop that reads them
+(B1b), by :func:`fits_whole_row`.  An exact ``torch.fft.rfft`` re-anchor
+every ``refresh_steps`` hops bounds f32 drift.  The hop counter ``count``
+and the ``anchored`` flag are shared by all streams and kept as host
+values.  Shared by the classic spectrogram and the spectrum analyzer.
 """
 
 from __future__ import annotations
@@ -21,8 +25,18 @@ import numpy as np
 import torch
 
 from openmeters_tpu_torch.ops.framing import FrameBuffer
-from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
+from openmeters_tpu_torch.ops.sliding_hop import sliding_hop, sliding_hop_spectra
 from openmeters_tpu_torch.utils.windows import WindowKind
+
+
+def fits_whole_row(hop: int, bins: int) -> bool:
+    """Whether a config takes the hop from sample deltas (B1a): its
+    ``[hop, bins]`` update matrices, re and im in f32, fit 6 MiB.  Larger
+    configs take the delta spectra (B1b).  The bound is the JAX package's
+    VMEM budget (``ops/pallas_sliding.py::fits_vmem``), kept so that each
+    config takes the same formulation, B1a or B1b, that the JAX package's
+    kernels take for it."""
+    return 2 * 4 * hop * bins <= 6 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +55,10 @@ class SlidingSTFT:
     def supported(self) -> bool:
         n = self.fft_size
         return n >= 64 and (n & (n - 1)) == 0 and self.hop * 2 <= n
+
+    @property
+    def whole_row(self) -> bool:
+        return fits_whole_row(self.hop, self.bins)
 
     @property
     def frames(self) -> FrameBuffer:
@@ -79,22 +97,37 @@ class SlidingSTFT:
         return corr
 
     @functools.lru_cache(maxsize=None)
-    def _tensors(self, device: torch.device):
-        """``(rot_r, rot_i, upd_r, upd_i, dc_corr)`` on ``device``."""
-        arrs = (*self._consts(), self._dc_corr_vector())
+    def _rows(self, device: torch.device):
+        """``(rot_r, rot_i, dc_corr)`` on ``device``, as :meth:`_consts`
+        computes the rotation."""
+        k = np.arange(self.bins)
+        rot = np.exp(2j * np.pi * k * self.hop / self.fft_size)
+        arrs = (rot.real.astype(np.float32), rot.imag.astype(np.float32), self._dc_corr_vector())
         return tuple(torch.from_numpy(a).to(device) for a in arrs)
 
-    def step_fused(self, sdft: dict, info: dict, norm: torch.Tensor, floor_db: float):
-        """One hop through :func:`sliding_hop`: slide, window, power, dB and
-        u16 codes.  Returns ``(new_sdft, codes [S, cols_cap, bins])``.
+    @functools.lru_cache(maxsize=None)
+    def _updates(self, device: torch.device):
+        """``(upd_r, upd_i)``, the ``[hop, bins]`` update matrices, on
+        ``device``."""
+        return tuple(torch.from_numpy(a).to(device) for a in self._consts()[2:])
+
+    def step_fused(self, sdft: dict, info: dict, norm: torch.Tensor, floor_db: float,
+                   emit_codes: bool):
+        """One hop: slide, window and power, emitted as float32 power or as
+        dB packed to u16 codes.  Returns ``(new_sdft, out [S, cols_cap,
+        bins])``.
 
         The periodic exact re-anchor happens before the hop as a carry
         substitution: the hop's column-0 slide is affine
-        (``F0 = rot * (f + d0 upd)``), so ``f' = conj(rot) F0_exact - d0 upd``
-        makes it land on the freshly computed spectrum."""
+        (``F0 = rot * (f + D0)``, ``D0`` column 0's delta spectrum), so
+        ``f' = conj(rot) F0_exact - D0`` makes it land on the freshly
+        computed spectrum.  On the B1a path ``D0`` is ``d0 @ upd``; on the
+        B1b path it is the delta spectrum the hop reads, so that path builds
+        no update matrices."""
         fb = self.frames
         n, h = self.fft_size, self.hop
-        rot_r, rot_i, upd_r, upd_i, dc_corr = self._tensors(info["buf"].device)
+        dev = info["buf"].device
+        rot_r, rot_i, dc_corr = self._rows(dev)
 
         ready = info["ready"]
         count = sdft["count"]
@@ -107,6 +140,10 @@ class SlidingSTFT:
             ],
             dim=1,
         )  # [S, cols, h]
+        if self.whole_row:
+            upd_r, upd_i = self._updates(dev)
+        else:
+            dspec = torch.fft.rfft(deltas, n=n)  # [S, cols, bins] complex64
 
         fr, fi = sdft["re"], sdft["im"]
         if refresh:
@@ -114,18 +151,28 @@ class SlidingSTFT:
             sr, si = spec.real, spec.imag
             tr = sr * rot_r + si * rot_i  # F0 * conj(rot)
             ti = si * rot_r - sr * rot_i
-            d0 = deltas[:, 0]
-            fr = (tr - d0 @ upd_r).contiguous()
-            fi = (ti - d0 @ upd_i).contiguous()
+            if self.whole_row:
+                d0 = deltas[:, 0]
+                dr, di = d0 @ upd_r, d0 @ upd_i
+            else:
+                dr, di = dspec[:, 0].real, dspec[:, 0].imag
+            fr = (tr - dr).contiguous()
+            fi = (ti - di).contiguous()
 
-        fr2, fi2, codes = sliding_hop(
-            ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
-            n=n, coeffs=tuple(float(a) for a in self._stencil()), floor_db=float(floor_db),
-        )
+        kw = dict(n=n, coeffs=tuple(float(a) for a in self._stencil()),
+                  floor_db=float(floor_db), emit_codes=emit_codes)
+        if self.whole_row:
+            fr2, fi2, out = sliding_hop(
+                ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm, **kw
+            )
+        else:
+            fr2, fi2, out = sliding_hop_spectra(
+                ready, fr, fi, dspec, rot_r, rot_i, dc_corr, norm, **kw
+            )
         new_sdft = {
             "re": fr2,
             "im": fi2,
             "count": count + 1,
             "anchored": sdft["anchored"] or refresh,
         }
-        return new_sdft, codes
+        return new_sdft, out

@@ -27,9 +27,19 @@ def db_to_power(db: torch.Tensor) -> torch.Tensor:
     return torch.exp2(db * (0.1 * math.log2(10.0)))
 
 
+def db_to_power_host(db: float) -> float:
+    """Host scalar variant of :func:`db_to_power`, for config constants."""
+    return float(2.0 ** (float(db) * 0.1 * math.log2(10.0)))
+
+
 def flush_denormal(x: torch.Tensor, threshold: float = FLUSH_F32) -> torch.Tensor:
     """Zero values with magnitude below ``threshold``."""
     return torch.where(torch.abs(x) < threshold, torch.zeros_like(x), x)
+
+
+def sanitize_negative_db(db: float, default: float) -> float:
+    """Finite negative dB or ``default``."""
+    return db if math.isfinite(db) and db < 0.0 else default
 
 
 def sanitize_sample_rate(sample_rate: float) -> float:

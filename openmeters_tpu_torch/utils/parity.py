@@ -1,6 +1,7 @@
 """Bars for holding one implementation against another: a kernel against
 its plain version, the card against the CPU, or the port against the JAX
-package.  First the reassigned spectrogram's, then the oscilloscope's.
+package.  First the reassigned spectrogram's, then the oscilloscope's,
+then the spectrum's, the stereometer's and the waveform's.
 
 Reassigned spectrogram columns.
 
@@ -243,3 +244,213 @@ def check_oscilloscope(errors: dict, where: str = "", sample_rate: float = POSIT
     ):
         if not ok:
             raise AssertionError(f"{where}: {what} (errors {errors})")
+
+
+# -- spectrum -------------------------------------------------------------------
+#
+# The averaging state (power) is held at every bin to 1e-5 of its trace's
+# peak amplitude, sqrt(power): the -100 dB spectral bar of BASELINE.md.  The
+# dB outputs (raw and A-weighted) are held to 0.01 dB at bins within 50 dB
+# of their trace's peak.  Readings, port against the JAX package on the CPU
+# over 24-100 hops of every path (direct, sliding B1a and B1b, hop > block,
+# dual trace, each averaging mode, a reset; ``test_analyzer_matches_jax``
+# records them): amplitude up to 7.7e-7 of the peak, dB up to 2.3e-3
+# within 50 dB (the held 4096/512 path).  The dB bar is 4.4 times that; the
+# amplitude bar itself allows 0.027 dB at 50 dB below the peak, so the dB
+# bar is the tighter there.
+#
+# One decision is discrete: exponential and peak-hold averaging zero a bin
+# whose power falls below the state floor (the dB floor less the largest
+# A-weighting gain).  A bin that lands within rounding of that floor can be
+# zeroed on one side and kept on the other (seen once in 100 hops of the
+# dual 16384/128 case, recorded as ``floor_flips``).  Both
+# sides' dB outputs read the floor there, so such a bin -- zero on one side,
+# within 0.1 % of the state floor on the other -- is counted
+# (``floor_flips``) and not held to the amplitude bar.
+
+SPECTRUM_AMPLITUDE = 1e-5
+SPECTRUM_DB = 0.01
+SPECTRUM_DB_RANGE = 50.0
+FLOOR_FLIP_REL = 1e-3
+
+
+def spectrum_errors(ours_power, ref_power, ours_snap, ref_snap, state_floor: float = 0.0) -> dict:
+    """Errors of a spectrum's averaging state ``[S, traces, bins]`` (power)
+    and snapshot (``raw_db``, ``weighted_db``, ``updated``) against
+    ``ref``'s (powers may be None: snapshots only): ``amplitude`` as a
+    share of each trace's peak amplitude,
+    ``db`` the largest dB difference at bins within 50 dB of their trace's
+    peak, ``floor_flips`` the bins zeroed at the ``state_floor`` on one
+    side only; ``mismatch`` lists ``updated`` if it differs."""
+
+    def t(x):
+        return (x if isinstance(x, torch.Tensor) else torch.tensor(x)).cpu().double()
+
+    amplitude, flips = 0.0, torch.zeros((), dtype=torch.bool)
+    if ours_power is not None:
+        po, pr = t(ours_power).clamp_min(0.0), t(ref_power).clamp_min(0.0)
+        ao, ar = po.sqrt(), pr.sqrt()
+        peak = ar.amax(-1, keepdim=True).clamp_min(1e-30)
+        near = state_floor * (1.0 + FLOOR_FLIP_REL)
+        flips = ((po == 0) & (pr > 0) & (pr < near)) | ((pr == 0) & (po > 0) & (po < near))
+        amplitude = float(torch.where(flips, 0.0, (ao - ar).abs() / peak).max())
+    db = 0.0
+    for f in ("raw_db", "weighted_db"):
+        o, r = t(getattr(ours_snap, f)), t(getattr(ref_snap, f))
+        held = r >= r.amax(-1, keepdim=True) - SPECTRUM_DB_RANGE
+        db = max(db, float(torch.where(held, (o - r).abs(), 0.0).max()))
+    same = torch.equal(t(ours_snap.updated), t(ref_snap.updated))
+    return {
+        "amplitude": amplitude,
+        "db": db,
+        "floor_flips": int(flips.sum()),
+        "mismatch": [] if same else ["updated"],
+    }
+
+
+def check_spectrum(errors: dict, where: str = "") -> None:
+    """Raise ``AssertionError`` if ``errors`` (from
+    :func:`spectrum_errors`) break a bar."""
+    for ok, what in (
+        (not errors["mismatch"], f"{errors['mismatch']} differ"),
+        (errors["amplitude"] <= SPECTRUM_AMPLITUDE,
+         f"amplitude differs by {errors['amplitude']} of the trace's peak"),
+        (errors["db"] <= SPECTRUM_DB, f"dB differs by {errors['db']} within 50 dB of the peak"),
+    ):
+        if not ok:
+            raise AssertionError(f"{where}: {what}")
+
+
+# -- stereometer and waveform -----------------------------------------------------
+#
+# Equal, NaN where the other is NaN: the stereometer's points (full band)
+# and points_valid, the waveform's min/max (columns and preview) and
+# col_valid.  Within a bar, absolute, for audio at full scale 1:
+# correlations 1e-4 (reading 7.3e-6: the EMA's block sums and the LR4
+# bands' rounding), band points 1e-4 (1.1e-5: the crossover in f32, whose
+# low band's poles sit near z = 1), colour 1e-5 (9.3e-7), RMS 0.01 dB
+# (3.7e-4 dB), progress 1e-6 (6e-8: one rounding).  The readings are the
+# port against the JAX package on the CPU over 40-80 hops with a reset and
+# non-finite samples, as ``tests/test_torch_stereo_waveform.py`` records them.
+
+STEREO_WAVE_BARS = {
+    "correlations": 1e-4,
+    "band_points": 1e-4,
+    "col_color": 1e-5,
+    "preview_color": 1e-5,
+    "col_rms_db": 0.01,
+    "preview_rms_db": 0.01,
+    "progress": 1e-6,
+}
+
+
+def snapshot_errors(ours, ref) -> dict:
+    """Compare two stereometer or waveform snapshots field by field.
+    Returns ``{field: largest |difference| where both are finite}`` and
+    ``mismatch``: the fields held equal that differ, and any field whose
+    non-finite entries differ.  The stereometer's band points (slots 1-3)
+    are ``band_points``."""
+
+    def t(x):
+        return (x if isinstance(x, torch.Tensor) else torch.tensor(x)).cpu()
+
+    out, mismatch = {}, []
+    for f in ref._fields:
+        o, r = t(getattr(ours, f)), t(getattr(ref, f))
+        if o.shape != r.shape or o.dtype != r.dtype:
+            mismatch.append(f)
+            continue
+        parts = {f: (o, r)}
+        if f == "points":
+            parts = {"points": (o[:, :1], r[:, :1]), "band_points": (o[:, 1:], r[:, 1:])}
+        for name, (a, b) in parts.items():
+            if name not in STEREO_WAVE_BARS:
+                same = a == b
+                if a.is_floating_point():
+                    same |= a.isnan() & b.isnan()
+                if not bool(same.all()):
+                    mismatch.append(name)
+                continue
+            a, b = a.double(), b.double()
+            if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+                mismatch.append(name)
+            both = torch.isfinite(a) & torch.isfinite(b)
+            out[name] = float(torch.where(both, (a - b).abs(), 0.0).max()) if a.numel() else 0.0
+    out["mismatch"] = mismatch
+    return out
+
+
+def check_snapshot(errors: dict, where: str = "") -> None:
+    """Raise ``AssertionError`` if ``errors`` (from
+    :func:`snapshot_errors`) break a bar."""
+    if errors["mismatch"]:
+        raise AssertionError(f"{where}: {errors['mismatch']} differ")
+    for name, err in errors.items():
+        if name != "mismatch" and not err <= STEREO_WAVE_BARS[name]:
+            raise AssertionError(f"{where}: {name} differs by {err} (bar {STEREO_WAVE_BARS[name]})")
+
+
+# -- every analyzer of an engine hop ---------------------------------------------
+
+LOUDNESS_LU = 0.01
+TRUE_PEAK_DB = 1e-3
+CLASSIC_CODES = 2  # within 60 dB of the column's peak
+
+
+def check_snapshots(ours: dict, ref: dict, where: str = "") -> dict:
+    """Hold one engine hop's snapshots ``{name: snapshot}`` to ``ref``'s,
+    each by its analyzer's bars: loudness within 0.01 LU (true peak 1e-3
+    dB); classic spectrogram codes within 2 at valid bins within 60 dB of
+    their column's peak; the reassigned spectrogram by
+    :func:`check_reassigned` with ``drift`` (each side slid its own
+    states); the oscilloscope, the spectrum's snapshot, the stereometer and
+    the waveform by their checks above.  Raises ``AssertionError``; returns
+    the errors by analyzer."""
+
+    def t(x):
+        return (x if isinstance(x, torch.Tensor) else torch.tensor(x)).cpu()
+
+    if set(ours) != set(ref):
+        raise AssertionError(f"{where}: analyzers {sorted(ours)} != {sorted(ref)}")
+    out = {}
+    for name, r in ref.items():
+        o = ours[name]
+        here = f"{where} {name}"
+        if name == "loudness":
+            err = {}
+            for f in r._fields:
+                a, b = t(getattr(o, f)).double(), t(getattr(r, f)).double()
+                err[f] = float((a - b).abs().max())
+                bar = TRUE_PEAK_DB if f == "true_peak_db" else LOUDNESS_LU
+                if a.shape != b.shape or not err[f] <= bar:
+                    raise AssertionError(f"{here}: {f} differs by {err[f]}")
+        elif name == "spectrogram" and type(r).__name__ == "ClassicColumns":
+            valid = t(r.valid)
+            if not torch.equal(t(o.valid), valid):
+                raise AssertionError(f"{here}: valid differs")
+            a, b = t(o.codes).to(torch.int64), t(r.codes).to(torch.int64)
+            held = valid[..., None] & (b >= b.amax(-1, keepdim=True) - round(60.0 * 65535 / 156))
+            err = {"codes": int(((a - b).abs() * held).max())}
+            if err["codes"] > CLASSIC_CODES:
+                raise AssertionError(f"{here}: codes differ by {err['codes']}")
+        elif name == "spectrogram":
+            valid = t(r.valid)
+            if not torch.equal(t(o.valid), valid):
+                raise AssertionError(f"{here}: valid differs")
+            err, _ = reassigned_errors(
+                tuple(t(getattr(o, f)) for f in ("freq_hz", "time_offset", "power")),
+                tuple(t(getattr(r, f)) for f in ("freq_hz", "time_offset", "power")),
+                valid, drift=True,
+            )
+            check_reassigned(err, here)
+        elif name == "oscilloscope":
+            err = oscilloscope_errors(o, r)
+            check_oscilloscope(err, here)
+        elif name == "spectrum":
+            err = spectrum_errors(None, None, o, r)
+            check_spectrum(err, here)
+        else:
+            err = snapshot_errors(o, r)
+            check_snapshot(err, here)
+        out[name] = err
+    return out

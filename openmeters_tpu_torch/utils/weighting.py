@@ -1,8 +1,25 @@
-"""BS.1770 K-weighting design (port of ``utils/weighting.py``), host numpy."""
+"""IEC A-weighting and the BS.1770 K-weighting design (port of
+``utils/weighting.py``), host numpy."""
 
 from __future__ import annotations
 
 import numpy as np
+
+def a_weight_db(freq_hz) -> np.ndarray:
+    """IEC 61672-1 A-weighting in dB with a +2.0 dB normalization offset at
+    1 kHz; non-positive frequencies map to -inf.  float32 out."""
+    f = np.asarray(freq_hz, np.float64)
+    c1 = 20.598997**2
+    c2 = 107.65265**2
+    c3 = 737.86223**2
+    c4 = 12194.217**2
+    f2 = np.square(f)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ra = (c4 * f2 * f2) / ((f2 + c1) * np.sqrt((f2 + c2) * (f2 + c3)) * (f2 + c4))
+        out = 20.0 * np.log10(ra) + 2.0
+    out = np.where(f > 0.0, out, -np.inf)
+    return out.astype(np.float32)
+
 
 # stage-1 high-shelf and stage-2 RLB high-pass design constants, re-derived
 # per sample rate via the bilinear transform

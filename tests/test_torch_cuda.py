@@ -61,7 +61,8 @@ def test_sliding_hop_kernel_matches_plain(card, fft, hop, block, window, s):
         torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(card)
         for a in (spec.real, spec.imag, deltas)
     )
-    rot_r, rot_i, upd_r, upd_i, dc = sl._tensors(card)
+    rot_r, rot_i, dc = sl._rows(card)
+    upd_r, upd_i = sl._updates(card)
     norm = torch.from_numpy(
         fft_bin_normalization(window_coefficients(WindowKind(window), fft), fft)
     ).to(card)
@@ -88,7 +89,8 @@ def test_sliding_hop_kernel_matches_plain(card, fft, hop, block, window, s):
 @pytest.mark.cuda
 def test_sliding_hop_rejects_bad_inputs(card):
     sl = SlidingSTFT(256, 32, 256, WindowKind.HANN)
-    rot_r, rot_i, upd_r, upd_i, dc = sl._tensors(card)
+    rot_r, rot_i, dc = sl._rows(card)
+    upd_r, upd_i = sl._updates(card)
     fr = torch.zeros((4, sl.bins), device=card)
     deltas = torch.zeros((4, 8, 32), device=card)
     norm = torch.ones((sl.bins,), device=card)
@@ -339,3 +341,205 @@ def test_oscilloscope_kernels_reject_bad_inputs(card):
         tcorr.corr_dots(ring, tmpl, shift, 12000, 2401)
     with pytest.raises(ValueError):  # not contiguous
         trows.window_rows(ring.t().contiguous().t(), starts, 100)
+
+
+def _slide_inputs(card, fft, hop, window, s, cols, seed):
+    """A real frame's spectrum state, ``cols`` columns of sample deltas and
+    the hop's constant rows, on the card, from a seed."""
+    sl = SlidingSTFT(fft, hop, 256, WindowKind(window))
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((s, fft + cols * hop)) * 0.3).astype(np.float32)
+    spec = np.fft.rfft(x[:, :fft].astype(np.float64), axis=-1)
+    deltas = np.stack(
+        [x[:, fft + k * hop : fft + (k + 1) * hop] - x[:, k * hop : (k + 1) * hop] for k in range(cols)],
+        axis=1,
+    )
+    fr, fi, deltas = (
+        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(card)
+        for a in (spec.real, spec.imag, deltas)
+    )
+    norm = torch.from_numpy(fft_bin_normalization(window_coefficients(WindowKind(window), fft), fft)).to(card)
+    kw = dict(n=fft, coeffs=tuple(float(a) for a in sl._stencil()), floor_db=DB_FLOOR)
+    return sl, fr, fi, deltas, norm, kw
+
+
+def _assert_hop_close(kr, ki, kout, rr, ri, rout, emit_codes, where):
+    """Kernel against plain for one hop: the state within 1e-5 of its row's
+    largest bin; codes within 2 at bins within 60 dB of the column's peak,
+    or power within 1e-5 of the column's peak amplitude."""
+    scale = torch.amax(torch.hypot(rr, ri), dim=1, keepdim=True)
+    err = torch.maximum((kr - rr).abs(), (ki - ri).abs()) / scale
+    assert float(err.max()) <= 1e-5, where
+    assert kout.shape == rout.shape and kout.dtype == rout.dtype, where
+    if emit_codes:
+        ref = rout.to(torch.int32)
+        held = ref >= ref.amax(dim=-1, keepdim=True) - RESOLVED_CODES
+        assert int(((kout.to(torch.int32) - ref).abs() * held).max()) <= 2, where
+    else:
+        amp = (kout.sqrt() - rout.sqrt()).abs() / rout.sqrt().amax(dim=-1, keepdim=True)
+        assert float(amp.max()) <= 1e-5, where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "fft,hop,window,s,cols",
+    [(16384, 512, "hann", 20, 1), (16384, 128, "hann", 9, 2), (4096, 2048, "blackman_harris", 17, 1),
+     (488, 16, "blackman_harris", 11, 3), (244, 16, "hann", 8, 2), (486, 8, "blackman", 5, 4)],
+)
+def test_sliding_hop_spectra_kernel_matches_plain(card, fft, hop, window, s, cols):
+    """B1b in both output modes, every ``ready``, at the tile edges of its
+    122-bin tiles: 8193 = 67 * 122 + 19 bins; 245 = 2 * 122 + 1 and 123 =
+    122 + 1, the Nyquist bin alone at the first lane of the last tile (its
+    reflected neighbours in the tile before); 244 = 2 * 122, the Nyquist
+    bin at the last lane of a tile."""
+    sl, fr, fi, deltas, norm, kw = _slide_inputs(card, fft, hop, window, s, cols, fft + hop)
+    rot_r, rot_i, dc = sl._rows(card)
+    dspec = torch.fft.rfft(deltas, n=fft)
+    for emit_codes in (False, True):
+        for ready in range(cols + 1):
+            args = (ready, fr, fi, dspec, rot_r, rot_i, dc, norm)
+            before = thop.sliding_hop_spectra.launches
+            got = thop.sliding_hop_spectra(*args, **kw, emit_codes=emit_codes)
+            assert thop.sliding_hop_spectra.launches == before + 1
+            ref = thop.sliding_hop_spectra_reference(*args, **kw, emit_codes=emit_codes)
+            torch.cuda.synchronize()
+            _assert_hop_close(*got, *ref, emit_codes, (emit_codes, ready))
+            if ready == 0:
+                assert torch.equal(got[0], fr) and torch.equal(got[1], fi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft,hop,window,s", [(8192, 128, "hann", 13), (64, 16, "blackman", 9)])
+def test_sliding_hop_power_mode_matches_plain(card, fft, hop, window, s):
+    """B1a with float32 power out (the spectrum's small sliding configs)."""
+    sl, fr, fi, deltas, norm, kw = _slide_inputs(card, fft, hop, window, s, 2, fft)
+    rot_r, rot_i, dc = sl._rows(card)
+    upd_r, upd_i = sl._updates(card)
+    for ready in (0, 1, 2):
+        args = (ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc, norm)
+        got = thop.sliding_hop(*args, **kw, emit_codes=False)
+        ref = thop.sliding_hop_reference(*args, **kw, emit_codes=False)
+        torch.cuda.synchronize()
+        _assert_hop_close(*got, *ref, False, ready)
+
+
+@pytest.mark.cuda
+def test_sliding_hop_spectra_rejects_bad_inputs(card):
+    sl, fr, fi, deltas, norm, kw = _slide_inputs(card, 256, 16, "hann", 4, 2, 0)
+    rot_r, rot_i, dc = sl._rows(card)
+    dspec = torch.fft.rfft(deltas, n=256)
+    with pytest.raises(ValueError):  # split re/im planes, not complex64
+        thop.sliding_hop_spectra(1, fr, fi, torch.view_as_real(dspec).contiguous(), rot_r, rot_i, dc, norm,
+                                 **kw, emit_codes=False)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        thop.sliding_hop_spectra(1, fr, fi, dspec.cpu(), rot_r, rot_i, dc, norm, **kw, emit_codes=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascade_n,cascade_high", [(1, False), (2, True)])
+def test_three_band_kernel_matches_plain(card, cascade_n, cascade_high):
+    """The crossover kernel against its plain per-sample loop, with NaN and
+    infinite samples: every product and sum rounds alone in both, so the
+    two agree to the bit."""
+    from openmeters_tpu_torch.ops import iir
+
+    rng = np.random.default_rng(cascade_n)
+    lanes = (37, 2)
+    x = (rng.standard_normal((3, 256, *lanes)) * 0.3).astype(np.float32)
+    x[1, 10, 1, 0], x[1, 50, 2, 1], x[1, 200, 0, 0] = np.nan, np.inf, -np.inf
+    x[2, :, 5, 1] = np.nan
+    state = iir.three_band_init(lanes, cascade_n, device=card)
+    ref_state = state.clone()
+    for blk in torch.from_numpy(x).to(card):
+        before = iir.three_band_scan.launches
+        got, state = iir.three_band_scan(blk, state, 48_000.0, cascade_n=cascade_n, cascade_high=cascade_high)
+        assert iir.three_band_scan.launches == before + 1
+        ref, ref_state = iir.three_band_scan_reference(blk, ref_state, 48_000.0, cascade_n=cascade_n,
+                                                       cascade_high=cascade_high)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+        assert torch.equal(state, ref_state)
+
+
+def _run_card_and_cpu(analyzer, audio, b, resets, compare):
+    """Step ``analyzer`` over ``audio [S, n, 2]`` on the card and on the
+    CPU, ``resets`` ``{hop: mask}``, calling ``compare(card carry, card
+    snapshot, cpu carry, cpu snapshot, hop)`` each hop."""
+    s = audio.shape[0]
+    on_card, on_cpu = analyzer.init(s, device="cuda"), analyzer.init(s, device="cpu")
+    for i in range(audio.shape[1] // b):
+        blk = torch.from_numpy(audio[:, i * b : (i + 1) * b])
+        rm = resets.get(i)
+        on_card, snap_card = analyzer.step(on_card, blk.cuda(), reset_mask=None if rm is None else rm.cuda())
+        on_cpu, snap_cpu = analyzer.step(on_cpu, blk, reset_mask=rm)
+        compare(on_card, snap_card, on_cpu, snap_cpu, i)
+
+
+def _stereo_audio(s, n, seed, bad=False):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48_000.0
+    f = rng.uniform(50.0, 8000.0, (s, 1))
+    left = 0.3 * np.sin(2 * np.pi * f * t) + 0.01 * rng.standard_normal((s, n))
+    right = 0.5 * left + 0.1 * np.sin(2 * np.pi * 1.7 * f * t)
+    audio = np.stack([left, right], -1).astype(np.float32)
+    if bad:
+        audio[0, 3000, 0], audio[1, 7000, 1], audio[0, 9001, :] = np.nan, np.inf, -np.inf
+    return audio
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw,hops",
+    [(dict(fft_size=16384, hop_size=512, block_frames=512, averaging="exponential"), 60),
+     (dict(fft_size=16384, hop_size=128, source="left", secondary_source="right", averaging="peak_hold"), 90),
+     (dict(fft_size=8192, hop_size=128), 70)],
+    ids=["b1b_16384_512", "b1b_16384_128_dual", "b1a_8192_128"],
+)
+def test_spectrum_card_matches_cpu(card, kw, hops):
+    """The spectrum on the card (B1b or B1a's power mode every hop) against
+    the CPU, with a reset, by the bars of ``utils/parity.py``."""
+    from openmeters_tpu_torch.analyzers import spectrum as tsp
+    from openmeters_tpu_torch.utils.channels import Channel
+    from openmeters_tpu_torch.utils.parity import check_spectrum, spectrum_errors
+
+    kw = {k: (tsp.AveragingMode(v) if k == "averaging" else Channel(v) if "source" in k else v)
+          for k, v in kw.items()}
+    an = tsp.SpectrumAnalyzer(tsp.SpectrumConfig(**kw))
+    counter = thop.sliding_hop if an._sliding.whole_row else thop.sliding_hop_spectra
+    before = counter.launches
+    b = an.config.block_frames
+    flips = []
+
+    def compare(cc, sc, cp, sp, i):
+        err = spectrum_errors(cc["smoothed"], cp["smoothed"], sc, sp, an.state_floor)
+        check_spectrum(err, f"hop {i}")
+        flips.append(err["floor_flips"])
+
+    _run_card_and_cpu(an, _stereo_audio(3, hops * b, seed=hops), b, {hops // 2: torch.tensor([False, True, False])},
+                      compare)
+    assert counter.launches == before + hops and sum(flips) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["stereometer_bands", "waveform"])
+def test_stereometer_waveform_card_matches_cpu(card, which):
+    """The stereometer with its LR4 bands and the waveform on the card (the
+    crossover kernel every hop) against the CPU, with a reset and
+    non-finite samples, by the bars of ``utils/parity.py``."""
+    from openmeters_tpu_torch.analyzers import stereometer as tst
+    from openmeters_tpu_torch.analyzers import waveform as tw
+    from openmeters_tpu_torch.ops import iir
+    from openmeters_tpu_torch.utils.parity import check_snapshot, snapshot_errors
+
+    an = (tst.StereometerAnalyzer(tst.StereometerConfig(analyze_bands=True)) if which != "waveform"
+          else tw.WaveformAnalyzer(tw.WaveformConfig(track_history=True)))
+    before = iir.three_band_scan.launches
+    hops = 60
+
+    def compare(cc, sc, cp, sp, i):
+        check_snapshot(snapshot_errors(sc, sp), f"hop {i}")
+
+    _run_card_and_cpu(an, _stereo_audio(3, hops * 256, seed=17, bad=True), 256,
+                      {30: torch.tensor([False, True, False])}, compare)
+    assert iir.three_band_scan.launches == before + hops

@@ -7,6 +7,7 @@ column's peak (see tests/test_torch_sliding.py for why deeper bins are not
 held to it); valid masks equal.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,6 +30,7 @@ from openmeters_tpu.utils.windows import WindowKind as JWindowKind  # noqa: E402
 from openmeters_tpu_torch import api as tapi  # noqa: E402
 from openmeters_tpu_torch import convert  # noqa: E402
 from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig  # noqa: E402
+from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig  # noqa: E402
 from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMeta  # noqa: E402
 from openmeters_tpu_torch.utils.windows import WindowKind  # noqa: E402
 
@@ -121,59 +123,158 @@ def test_reduced_surround_config_matches():
                   jmeta=jmeta, tmeta=tmeta)
 
 
-def test_carry_from_jax_continues():
-    """JAX runs 50 hops of the flagship plus the default oscilloscope (whose
-    carry holds a tuple of rings and host scalars); both packages continue
-    30 more from its carry."""
-    import dataclasses
+def _continue_from_jax_carry(jcfg, tcfg, s, before, after, seed, resets=None):
+    """JAX runs ``before`` hops; its carry comes into the port through
+    ``convert.carry_from_jax`` (and back out leaf for leaf, a sliding state
+    cut to ``bins``), and both continue to hop ``after``, held hop by hop
+    by ``check_snapshots``.  The port session starts with no spectrum
+    snapshot of its own: a cadenced spectrum is held from the first
+    spectrum hop the port computes, its averaging state and sliding
+    counters with it.  Returns ``(jax carry, port session, spectrum hops
+    held)``."""
+    from openmeters_tpu_torch.utils.parity import check_snapshots, check_spectrum, spectrum_errors
 
-    from openmeters_tpu.analyzers.oscilloscope import OscilloscopeConfig as JOscConfig
-    from openmeters_tpu_torch.analyzers.oscilloscope import OscilloscopeConfig
-    from openmeters_tpu_torch.utils.parity import check_oscilloscope, oscilloscope_errors
-
-    jcfg, tcfg = _configs()
-    jcfg = dataclasses.replace(jcfg, oscilloscope=JOscConfig())
-    tcfg = dataclasses.replace(tcfg, oscilloscope=OscilloscopeConfig())
-    s = 3
-    audio = _audio(s, 80, 2, seed=34)
+    audio = _audio(s, after, 2, seed=seed)
+    audio = np.pad(audio, ((0, 0), (0, 0), (0, tcfg.channels - 2)))  # as analyze pads
     jsess = japi.AnalysisSession(JMeterEngine(jcfg), s)
-    for i in range(50):
+    for i in range(before):
         jsess.feed(audio[:, i * 256 : (i + 1) * 256])
+    assert not jsess._pending_blocks  # the carry is taken on a spectrum-hop boundary
     carry_np = jax.device_get(jsess.carry)
     tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu")
     tsess.carry = convert.carry_from_jax(carry_np, tsess.engine)
-    assert isinstance(tsess.carry["oscilloscope"]["hist"], tuple)
-    assert tsess.carry["oscilloscope"]["origin"] == int(carry_np["oscilloscope"]["origin"])
 
     back = convert.carry_to_numpy(tsess.carry)
     flat_j = jax.tree_util.tree_leaves_with_path(carry_np)
     flat_t = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_j) == len(flat_t)
     for path, leaf in flat_j:
-        ours = flat_t[path]
-        assert ours.dtype == np.asarray(leaf).dtype and ours.shape == np.shape(leaf), path
-        np.testing.assert_array_equal(ours, np.asarray(leaf), err_msg=str(path))
+        ours, ref = flat_t[path], np.asarray(leaf)
+        if jax.tree_util.keystr(path).endswith(("['sdft']['re']", "['sdft']['im']")):
+            ref = ref[..., : ours.shape[-1]]  # the JAX kernel's tile padding
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape, path
+        np.testing.assert_array_equal(ours, ref, err_msg=str(path))
 
-    for i in range(50, 80):
+    r = tsess.engine.spectrum_cadence
+    held = 0
+    for i in range(before, after):
         blk = audio[:, i * 256 : (i + 1) * 256]
-        jsnaps, tsnaps = jsess.feed(blk), tsess.feed(blk)
-        assert_snapshots_match(jsnaps, tsnaps, i)
-        check_oscilloscope(oscilloscope_errors(tsnaps["oscilloscope"], jsnaps["oscilloscope"]), f"hop {i}")
+        reset = None if resets is None else resets.get(i)
+        jsnaps, tsnaps = jsess.feed(blk, reset), tsess.feed(blk, reset)
+        if "spectrum" in jsnaps and "spectrum" not in tsnaps:
+            assert i < before + r - 1, i  # only before the port's first spectrum hop
+            jsnaps = {k: v for k, v in jsnaps.items() if k != "spectrum"}
+        check_snapshots(tsnaps, jsnaps, f"hop {i}")
+        if "spectrum" in tsnaps and (i + 1) % r == 0:
+            tsp, jsp = tsess.carry["spectrum"], jsess.carry["spectrum"]
+            err = spectrum_errors(tsp["smoothed"], np.asarray(jsp["smoothed"]), tsnaps["spectrum"],
+                                  jsnaps["spectrum"], tsess.engine.analyzers["spectrum"].state_floor)
+            check_spectrum(err, f"hop {i} spectrum state")
+            if "sdft" in tsp:
+                assert tsp["sdft"]["count"] == int(jsp["sdft"]["count"])
+                assert tsp["sdft"]["anchored"] == bool(jsp["sdft"]["anchored"])
+            held += 1
+    return carry_np, tsess, held
 
 
-def test_unported_analyzers_refuse():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MeterEngine(EngineConfig())
-    pending = dict(spectrum=None, stereometer=None, waveform=None)
-    for name in pending:  # each pending analyzer refuses on its own
-        with pytest.raises(NotImplementedError, match=f"the {name} analyzer is not ported"):
-            MeterEngine(EngineConfig(**{k: v for k, v in pending.items() if k != name}))
-    # the default (reassigned) spectrogram and the default oscilloscope build
-    engine = MeterEngine(EngineConfig(**pending))
+def _spectrum_only(spectrum):
+    return dict(spectrum=spectrum, spectrogram=None, oscilloscope=None, stereometer=None,
+                waveform=None, channels=2)
+
+
+@pytest.mark.parametrize("case", ["flagship_oscilloscope", "default", "sliding_16384_512"])
+def test_carry_from_jax_continues(case, monkeypatch):
+    """JAX runs some hops; both packages continue from its carry.
+
+    - ``flagship_oscilloscope``: the flagship plus the default oscilloscope
+      (whose carry holds a tuple of rings and host scalars), S=3; JAX runs
+      50 hops, both continue 30 more.
+    - ``default``: the literal ``EngineConfig()``.  JAX runs 68 hops (its
+      spectrum's first column lands at hop 63); both continue 24 more, six
+      spectrum hops at cadence 4.
+    - ``sliding_16384_512``: loudness and the spectrum at 16384/512
+      (cadence 2, the B1b path), the JAX package's kernel run in interpret
+      mode, which stores its sliding state padded to 512-bin tiles.  JAX
+      runs 72 hops (the first column lands at hop 63); both continue 28
+      more, fourteen sliding spectrum hops, with a reset at hop 90.
+    """
+    from openmeters_tpu.analyzers.oscilloscope import OscilloscopeConfig as JOscConfig
+    from openmeters_tpu.analyzers.spectrum import SpectrumConfig as JSpectrumConfig
+    from openmeters_tpu_torch.analyzers.oscilloscope import OscilloscopeConfig
+
+    resets = None
+    if case == "flagship_oscilloscope":
+        jcfg, tcfg = _configs()
+        jcfg = dataclasses.replace(jcfg, oscilloscope=JOscConfig())
+        tcfg = dataclasses.replace(tcfg, oscilloscope=OscilloscopeConfig())
+        s, before, after, seed = 3, 50, 80, 34
+    elif case == "default":
+        jcfg, tcfg = JEngineConfig(), EngineConfig()
+        s, before, after, seed = 2, 68, 92, 35
+    else:
+        monkeypatch.setenv("OPENMETERS_PALLAS_INTERPRET", "1")
+        jax.clear_caches()
+        jcfg = JEngineConfig(**_spectrum_only(JSpectrumConfig(hop_size=512)))
+        tcfg = EngineConfig(**_spectrum_only(SpectrumConfig(hop_size=512)))
+        s, before, after, seed = 2, 72, 100, 35
+        resets = {90: np.array([False, True])}
+    try:
+        carry_np, tsess, held = _continue_from_jax_carry(jcfg, tcfg, s, before, after, seed, resets)
+    finally:
+        jax.clear_caches()
+    r = tsess.engine.spectrum_cadence
+    if case == "flagship_oscilloscope":
+        assert held == 0 and isinstance(tsess.carry["oscilloscope"]["hist"], tuple)
+        assert isinstance(tsess.carry["oscilloscope"]["origin"], int)
+        return
+    assert held == (after - before) // r
+    assert isinstance(tsess.carry["spectrum"]["fb"]["avail"], int)
+    assert bool(tsess.carry["spectrum"]["smoothed"].any())
+    if case == "default":
+        assert r == 4 and isinstance(tsess.carry["waveform"]["ring_head"], int)
+    else:
+        assert r == 2 and carry_np["spectrum"]["sdft"]["re"].shape == (s, 17 * 512)  # tile-padded
+        assert tuple(tsess.carry["spectrum"]["sdft"]["re"].shape) == (s, 8193)
+        assert not tsess.engine.analyzers["spectrum"]._sliding.whole_row  # B1b
+
+
+def test_carry_from_jax_cuts_tile_padding():
+    """A sliding state the JAX package stores padded to its kernel's 512-bin
+    tiles (as it does where its kernels run) comes in cut to ``bins``."""
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig
+
+    cfg = EngineConfig(loudness=None, spectrogram=None, oscilloscope=None, stereometer=None,
+                       waveform=None, spectrum=SpectrumConfig(hop_size=512))
+    engine = MeterEngine(cfg)
+    carry = convert.carry_to_numpy(engine.init(2, device="cpu"))
+    sdft = carry["spectrum"]["sdft"]
+    rng = np.random.default_rng(0)
+    re = rng.standard_normal((2, 8193)).astype(np.float32)
+    sdft["re"] = np.pad(re, ((0, 0), (0, 17 * 512 - 8193)))
+    sdft["im"] = np.pad(-re, ((0, 0), (0, 17 * 512 - 8193)))
+    back = convert.carry_from_jax(carry, engine)["spectrum"]["sdft"]
+    assert tuple(back["re"].shape) == (2, 8193) and back["count"] == 0
+    np.testing.assert_array_equal(back["re"].numpy(), re)
+    np.testing.assert_array_equal(back["im"].numpy(), -re)
+
+
+def test_default_engine_builds_all_six():
+    engine = MeterEngine(EngineConfig())
+    assert list(engine.analyzers) == [
+        "loudness", "spectrogram", "spectrum", "oscilloscope", "stereometer", "waveform"
+    ]
     assert engine.config.spectrogram.use_reassignment
+    assert engine.spectrum_cadence == 4
+    assert engine.analyzers["spectrum"].config.block_frames == 1024
+    assert not engine.analyzers["spectrum"].use_sliding  # 16384/1024 takes the direct rFFT
     carry = engine.init(1, device="meta")
     assert set(carry["spectrogram"]) == {"fb", "srs"}
     assert "cap" in carry["oscilloscope"] and "snap" not in carry["oscilloscope"]
+    assert set(carry["spectrum"]) == {"fb", "smoothed"}
+    assert carry["waveform"]["ring_head"] == 0 and "tb" not in carry["stereometer"]
+    sliding = MeterEngine(dataclasses.replace(EngineConfig(), spectrum=SpectrumConfig(hop_size=512)))
+    assert sliding.spectrum_cadence == 2 and sliding.analyzers["spectrum"].use_sliding
+    assert not sliding.analyzers["spectrum"]._sliding.whole_row  # B1b
     _, tcfg = _configs()
     assert MeterEngine(tcfg).config.spectrogram.sample_rate == 48_000.0
 
@@ -233,6 +334,9 @@ def test_port_imports_no_jax():
         "cfg = EngineConfig(spectrum=None, stereometer=None, waveform=None)\n"
         "osc = api.analyze(np.ones((2, 2048, 2), np.float32), config=cfg, device='cpu')\n"
         "assert type(osc[-1]['oscilloscope']).__name__ == 'OscilloscopeSnapshot'\n"
+        "full = api.analyze(np.ones((2, 2048, 2), np.float32), device='cpu')\n"
+        "assert sorted(full[-1]) == ['loudness', 'oscilloscope', 'spectrogram', 'spectrum',\n"
+        "                            'stereometer', 'waveform']\n"
         "import openmeters_tpu_torch.ops.corr, openmeters_tpu_torch.ops.rows\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
         "        or m == 'openmeters_tpu']\n"

@@ -84,6 +84,17 @@ def _const_pairs(name):
         return [(a, b) for lift in (1, 32, 256)
                 for a, b in zip(tiir._lifted_mats(sections, lift),
                                 jiir._lifted_mats(sections, lift))]
+    if name == "spectrum":
+        freqs = np.array([-1.0, 0.0, 10.0, 1000.0, 12345.6, 24000.0])
+        out = [(tweighting.a_weight_db(freqs), jweighting.a_weight_db(freqs))]
+        out += [(tlevel.db_to_power_host(db), jlevel.db_to_power_host(db)) for db in (-100.0, -101.3, 0.0, 6.5)]
+        out += [(tlevel.sanitize_negative_db(db, -100.0), jlevel.sanitize_negative_db(db, -100.0))
+                for db in (-60.0, 0.0, 3.0, float("nan"), float("-inf"))]
+        return out
+    if name == "crossover":
+        return [(np.array(tiir._crossover_coeffs(rate, splits, n)), np.array(jiir._crossover_coeffs(rate, splits, n)))
+                for rate in (44_100.0, 48_000.0, 192_000.0) for splits in ((200.0, 2000.0), (80.0, 30_000.0))
+                for n in (1, 2)]
     if name == "sliding":
         out = []
         for kind in ("hann", "blackman_harris"):
@@ -96,7 +107,8 @@ def _const_pairs(name):
 
 
 @pytest.mark.parametrize(
-    "name", ["levels", "windows", "channels", "weighting", "truepeak", "lifted", "sliding"]
+    "name",
+    ["levels", "windows", "channels", "weighting", "truepeak", "lifted", "sliding", "spectrum", "crossover"],
 )
 def test_constant_helpers_bit_identical(name):
     for ours, ref in _const_pairs(name):

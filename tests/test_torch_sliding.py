@@ -131,7 +131,7 @@ def test_step_fused_matches_jax_sliding_stft(fft, hop, block, window):
         jst, power = jstep(jst, jinfo)
         jcodes = pack_classic_db(power_to_db(power * norm, DB_FLOOR))
         anchors += int(not tst["anchored"] or tst["count"] % 32 == 0) * (tinfo["ready"] > 0)
-        tst, tcodes = tsl.step_fused(tst, tinfo, torch.from_numpy(norm), DB_FLOOR)
+        tst, tcodes = tsl.step_fused(tst, tinfo, torch.from_numpy(norm), DB_FLOOR, emit_codes=True)
         assert tst["count"] == int(jst["count"]) and tst["anchored"] == bool(jst["anchored"])
         valid = np.asarray(jinfo["valid"])
         np.testing.assert_array_equal(tinfo["valid"].numpy(), valid)

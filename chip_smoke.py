@@ -5,7 +5,10 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. the card: name and power limit; f32 matmuls in full precision;
-2. build the CUDA kernel library from ``openmeters_tpu_torch/csrc`` (timed);
+2. build the CUDA kernel library from ``openmeters_tpu_torch/csrc`` (timed),
+   then find the tensor-core instructions (``HGMMA`` for ``wgmma``, ``HMMA``
+   for ``mma.sync``) in the SASS of the two kernels that run their delta
+   products on the tensor cores, B1a and B2 (``cuobjdump -sass``);
 3. the ``sliding_hop`` kernel against its plain PyTorch version on the same
    card tensors, at the flagship shape and a small Blackman-Harris shape,
    for ready in {0, 1, cols}, plus both versions' times at the flagship
@@ -18,7 +21,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 6. the ``reassigned_sliding_hop`` kernel against its plain version at the
    default reassigned shape (S=8192, n 2048, hop 64, 4 columns, 1025 bins,
    Hann) and a small Blackman-Harris zero-padded shape (stencil reach 6),
-   for ready in {0, 1, cols}, plus both versions' times;
+   for ready in {0, 1, cols} -- the states against the f32 plain version,
+   the corrections against the plain version in float64 and within 1.5
+   times the f32 plain version's own distance from it -- plus both
+   versions' times;
 7. the ``reassigned_columns`` kernel against its plain version at n 8192
    (h 16384; 1024 frames, and the main path's 8192), n 2048 and n 512,
    plus both versions' times;
@@ -80,9 +86,11 @@ the default ``SpectrogramConfig()`` (reassigned 2048/64 Hann).  Before the
 last line it prints one JSON object with each kernel's launches on its
 main path, error, times, least possible time (``bound_ms``: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this
-run's inputs) and the time of the PyTorch call or chain computing the same
-function (``library_ms``), then the card's ``nvidia-smi`` name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+run's inputs; for B1a and B2, whose products run on the tensor cores, the
+larger of the bytes' time and 3xTF32's operations over 495 TFLOP/s, with
+all three bounds beside it) and the time of the PyTorch call or chain
+computing the same function (``library_ms``), then the card's
+``nvidia-smi`` name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -111,6 +119,7 @@ TIMED_HOPS = 200
 # the H100 SXM's published peaks: HBM bytes a second, f32 (non-tensor) FLOP a second
 PEAK_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 
 
 def log(msg: str) -> None:
@@ -169,14 +178,55 @@ def fft_flops(n: int, count: int) -> float:
     return 5.0 * n * math.log2(n) * count
 
 
-def bound(moved: float, flops: float) -> dict:
+def bound(moved: float, flops: float, tensor_cores: bool = False) -> dict:
     """The least time the card could take: bytes moved over its memory
-    rate, or operations over its f32 rate, whichever is larger."""
+    rate, or operations over its f32 rate, whichever is larger.  With
+    ``tensor_cores`` the operations are products run in 3xTF32 (three TF32
+    products each): the bound is then the larger of the bytes' time and
+    ``3 * flops`` over the TF32 rate, and all three bounds are kept."""
     by_bytes = moved / PEAK_BYTES * 1e3
     by_ops = flops / PEAK_F32_FLOPS * 1e3
+    out = {}
+    if tensor_cores:
+        out = {"bound_f32_ms": by_ops, "bound_tf32_ms": 3 * flops / PEAK_TF32_FLOPS * 1e3,
+               "bound_bytes_ms": by_bytes}
+        by_ops = out["bound_tf32_ms"]
     if by_bytes >= by_ops:
-        return {"bound_ms": by_bytes, "bound_by": "bytes"}
-    return {"bound_ms": by_ops, "bound_by": "operations"}
+        return {**out, "bound_ms": by_bytes, "bound_by": "bytes"}
+    return {**out, "bound_ms": by_ops, "bound_by": "operations"}
+
+
+def fmt_bound(k: dict) -> str:
+    text = f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})"
+    if "bound_tf32_ms" in k:
+        text += (f" = max(bytes {k['bound_bytes_ms']:.4f}, 3xTF32 {k['bound_tf32_ms']:.4f}); "
+                 f"f32 CUDA-core bound {k['bound_f32_ms']:.4f} ms")
+    return text
+
+
+# the kernels whose delta products run on the tensor cores, by symbol
+TENSOR_CORE_KERNELS = ("sliding_hop_deltas_kernel", "reassigned_hop_kernel")
+
+
+def tensor_core_sass(lib_path) -> dict:
+    """``{kernel: tensor-core opcodes}`` from ``cuobjdump -sass`` of the
+    built library, for each of ``TENSOR_CORE_KERNELS`` (every instance of a
+    template); fails if one shows none."""
+    from openmeters_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        for kernel in TENSOR_CORE_KERNELS:
+            if kernel in name:
+                ops = {w.split(".")[0] for w in part.split() if w.startswith(("HGMMA", "HMMA"))}
+                check(bool(ops), f"{name}: no tensor-core instruction in its SASS")
+                found.setdefault(kernel, set()).update(ops)
+    check(set(found) == set(TENSOR_CORE_KERNELS), f"kernels not found in the SASS: {found}")
+    return {k: sorted(v) for k, v in found.items()}
 
 
 def hop_inputs(sl, s: int, ready_cols: int, gen: torch.Generator, dev):
@@ -216,8 +266,9 @@ def phase3_kernel(dev) -> dict:
         fr, fi, deltas = hop_inputs(sl, s, cols, gen, dev)
         args = (fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc, norm)
         kw = dict(n=sl.fft_size, coeffs=coeffs, floor_db=DB_FLOOR)
+        tiles = sl._tiles(dev)  # the kernel's staging of upd, kept as the engine keeps it
         for ready in sorted({0, 1, cols}):
-            kr, ki, kc = sliding_hop(ready, *args, **kw)
+            kr, ki, kc = sliding_hop(ready, *args, **kw, tiles=tiles)
             rr, ri, rc = sliding_hop_reference(ready, *args, **kw)
             torch.cuda.synchronize()
             scale = torch.clamp_min(torch.amax(torch.hypot(rr, ri), dim=1, keepdim=True), 1e-30)
@@ -240,22 +291,22 @@ def phase3_kernel(dev) -> dict:
         if label == "flagship":
             # plain, kernel, kernel, plain on the same card within this run
             reps = 20
-            kern = lambda: sliding_hop(cols, *args, **kw)  # noqa: E731
+            kern = lambda: sliding_hop(cols, *args, **kw, tiles=tiles)  # noqa: E731
             plain = lambda: sliding_hop_reference(cols, *args, **kw)  # noqa: E731
             p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
             # each delta sample times a complex update coefficient: 2 FMA a bin
-            out = sliding_hop(cols, *args, **kw)
-            result.update(bound(nbytes(*args, *out), 4.0 * s * cols * sl.hop * sl.bins))
+            out = kern()
+            result.update(bound(nbytes(*args, *out), 4.0 * s * cols * sl.hop * sl.bins, tensor_cores=True))
             # the library call: one rFFT of the hop's windowed frames
             frames = torch.randn((s, cols, sl.fft_size), generator=gen, device=dev)
             result["library_ms"] = time_cuda(lambda: torch.fft.rfft(frames), reps)  # noqa: B023
             del frames, out
             log(
                 f"phase 3 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-                f"rfft of the windowed frames {result['library_ms']:.4f} ms, bound "
-                f"{result['bound_ms']:.4f} ms ({result['bound_by']}) [{card_line()}]"
+                f"rfft of the windowed frames {result['library_ms']:.4f} ms, {fmt_bound(result)} "
+                f"[{card_line()}]"
             )
     return result
 
@@ -468,6 +519,7 @@ def phase6_reassigned_hop(dev) -> dict:
         reassigned_sliding_hop_reference,
     )
     from openmeters_tpu_torch.ops.sliding_reassigned import SlidingReassigned
+    from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
     from openmeters_tpu_torch.utils.windows import WindowKind
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -500,9 +552,18 @@ def phase6_reassigned_hop(dev) -> dict:
         args = (states, dx, dh, t["upd"], t["rot_r"], t["rot_i"], t["normq"], t["freqb"])
         kw = dict(n=n, zpf=sl.zpf, coeffs=sl.coeffs(), inv_2pi=48_000.0 / (2.0 * np.pi),
                   inv_hop=1.0 / hop, latency_hops=sl.center / hop)
+        # the plain version in float64 too: the reassignment's corrections at
+        # bins 60 dB down amplify the products' rounding, so two f32 results
+        # that round apart (the kernel's 3xTF32 sums and cuBLAS's FMA chains)
+        # differ by about each one's own distance from the exact value.  The
+        # kernel's corrections are held to the bars against the exact
+        # (float64) plain version and to be as close to it as the f32 plain
+        # version; the states against the f32 plain version, as before.
+        args64 = (tuple(a.double() for a in states), *(a.double() for a in args[1:]))
         for ready in sorted({0, 1, cols}):
-            kst, kf, kt, kp = reassigned_sliding_hop(ready, *args, **kw)
+            kst, kf, kt, kp = reassigned_sliding_hop(ready, *args, **kw, tiles=t["tiles"])
             rst, rf, rt, rp = reassigned_sliding_hop_reference(ready, *args, **kw)
+            exact = tuple(a.float() for a in reassigned_sliding_hop_reference(ready, *args64, **kw)[1:])
             torch.cuda.synchronize()
             state_err = abs_err = 0.0
             for i in range(0, 8, 2):  # each complex state against its row maximum
@@ -511,41 +572,48 @@ def phase6_reassigned_hop(dev) -> dict:
                     d = (kst[j] - rst[j]).abs()
                     state_err = max(state_err, float((d / scale).max()))
                     abs_err = max(abs_err, float(d.max()))
+            every = torch.ones((s, cols), dtype=torch.bool, device=dev)
             err, _ = reassigned_errors(
-                (kf, kt, kp), (rf, rt, rp), torch.ones((s, cols), dtype=torch.bool, device=dev),
-                drift=False, label=f"phase 6 {label} ready={ready}",
+                (kf, kt, kp), exact, every, drift=False, label=f"phase 6 {label} ready={ready}",
             )
+            plain_err, _ = errors_of((rf, rt, rp), exact, every, drift=False)
+            kern_err, _ = errors_of((kf, kt, kp), (rf, rt, rp), every, drift=False)
             log(
                 f"phase 6 {label} S={s} n={n} hop={hop} cols={cols} bins={sl.bins} ready={ready}: "
-                f"states max|d|/rowmax {state_err:.3e} (abs {abs_err:.3e}); {fmt_errors(err)}"
+                f"states max|d|/rowmax {state_err:.3e} (abs {abs_err:.3e}); kernel vs float64 plain: "
+                f"{fmt_errors(err)}; f32 plain vs float64 plain: {fmt_errors(plain_err)}; kernel vs f32 "
+                f"plain: {fmt_errors(kern_err)}"
             )
             check(state_err <= 1e-5, f"{label} ready={ready}: state error {state_err}")
+            check(err["time_hops"] <= 1.5 * plain_err["time_hops"],
+                  f"{label} ready={ready}: time 1.5 times further from float64 than the f32 plain version's")
             if ready == 0:
                 check(all(torch.equal(a, b) for a, b in zip(kst, states)), "held states changed")
             if label == "default" and ready == cols:
                 result = {"max_abs_err": abs_err, "max_rel_state_err": state_err, **err}
+            del exact
 
         if label == "default":
             reps = 10
-            kern = lambda: reassigned_sliding_hop(cols, *args, **kw)  # noqa: E731
+            kern = lambda: reassigned_sliding_hop(cols, *args, **kw, tiles=t["tiles"])  # noqa: E731, B023
             plain = lambda: reassigned_sliding_hop_reference(cols, *args, **kw)  # noqa: E731
             p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
             # per delta sample of x and hx, 4 FMA a bin (U and V, re and im)
-            out = reassigned_sliding_hop(cols, *args, **kw)
+            out = kern()
             moved = nbytes(*states, dx, dh, *args[3:], *out[0], *out[1:])
-            result.update(bound(moved, 2.0 * s * cols * 2 * (2 * hop) * 4 * sl.bins))
+            result.update(bound(moved, 2.0 * s * cols * 2 * (2 * hop) * 4 * sl.bins, tensor_cores=True))
             # the library call: one FFT of the hop's frames under the three windows
             frames = torch.randn((3, s, cols, n), generator=gen, device=dev, dtype=torch.complex64)
             result["library_ms"] = time_cuda(lambda: torch.fft.fft(frames), reps)  # noqa: B023
             del frames, out
             log(
                 f"phase 6 timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-                f"FFT of the three windowed frames {result['library_ms']:.4f} ms, bound "
-                f"{result['bound_ms']:.4f} ms ({result['bound_by']}) [{card_line()}]"
+                f"FFT of the three windowed frames {result['library_ms']:.4f} ms, {fmt_bound(result)} "
+                f"[{card_line()}]"
             )
-        del x, states, dx, dh, args
+        del x, states, dx, dh, args, args64
     torch.cuda.empty_cache()
     return result
 
@@ -1491,6 +1559,8 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "smem")):
             log("  ptxas: " + line.strip())
+    for name, ops in tensor_core_sass(_build.library_path()).items():
+        log(f"phase 2 {name}: tensor-core instructions {', '.join(ops)} in its SASS")
 
     kernel = phase3_kernel(dev)
     phase4_slice(dev)
@@ -1515,16 +1585,18 @@ def main() -> int:
                                       breakdown=("spectrum",))["launches"]
 
     def entry(name, source, replaces, n, k):
+        extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            **{key: k[key] for key in extra if key in k},
         }
 
     corr_src = "openmeters_tpu_torch/csrc/corr_search.cu"
     print(json.dumps({
         "kernels": [
-            entry("sliding_hop", "openmeters_tpu_torch/csrc/sliding_hop.cu",
+            entry("sliding_hop", "openmeters_tpu_torch/csrc/sliding_hop_deltas.cu",
                   "openmeters_tpu/ops/pallas_sliding.py:381", launches, kernel),
             entry("reassigned_sliding_hop", "openmeters_tpu_torch/csrc/reassigned_hop.cu",
                   "openmeters_tpu/ops/pallas_sliding_reassigned.py:229", hop_launches, hop_kernel),

@@ -105,7 +105,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.sliding_hop_launch.argtypes = [
-                p, p, p, p, p, p, p, p, p,  # fr fi deltas upd_r upd_i rot_r rot_i dc norm
+                p, p, p, p, p, p, p, p,  # fr fi deltas tiles rot_r rot_i dc norm
                 p, p, p,  # fr_out fi_out out
                 i, i, i, i, i,  # S cols hop bins ready
                 f, f, f, f, f, i, i,  # inv_n a0 h1 h2 h3 reach dc_bins
@@ -124,7 +124,7 @@ def load_library() -> ctypes.CDLL:
             lib.sliding_hop_spectra_launch.restype = ctypes.c_int
             lib.reassigned_hop_launch.argtypes = [
                 *[p] * 16,  # eight states in, eight out
-                p, p, p,  # dx dh upd
+                p, p, p,  # dx dh tiles
                 p, p, p, p,  # rot_r rot_i normq freqb
                 p, p, p,  # freq time power
                 i, i, i, i, i, i, i,  # S cols hop bins ready zpf nterms

@@ -10,9 +10,11 @@ them (held when ``k >= ready``); build the complex analytic spectra
 Nyquist; apply the window, derivative-window and time-weighted-window
 stencils; and take the reassignment corrections.
 
-:func:`reassigned_sliding_hop` launches ``csrc/reassigned_hop.cu`` for CUDA
-tensors and runs :func:`reassigned_sliding_hop_reference` for CPU tensors;
-on any other device it raises.  ``reassigned_sliding_hop.launches`` counts
+:func:`reassigned_sliding_hop` launches ``csrc/reassigned_hop.cu`` (the
+delta products on the tensor cores in 3xTF32, then the slide, stencils and
+corrections) for CUDA tensors and runs
+:func:`reassigned_sliding_hop_reference` for CPU tensors; on any other
+device it raises.  ``reassigned_sliding_hop.launches`` counts
 kernel launches.
 """
 
@@ -22,8 +24,19 @@ import math
 
 import torch
 
+from openmeters_tpu_torch.ops.update_tiles import KC, update_tiles
+
 MAX_TERMS = 4  # cosine-sum window terms the kernel takes (Blackman-Harris)
 MAX_ZPF = 2  # zero-padding factors the kernel takes
+TILE_EXT = 128  # bins the kernel slides per block, halo included
+TILE_HALO = 6  # its halo: MAX_ZPF * (MAX_TERMS - 1)
+
+
+def hop_tiles(upd: torch.Tensor) -> torch.Tensor:
+    """The fused ``[2*hop, 4*bins]`` update matrix as the kernel stages it
+    (``ops/update_tiles.py``: parts U_re | U_im | V_re | V_im, bin tiles of
+    128 with a halo of 6)."""
+    return update_tiles(upd, upd.shape[1] // 4, 4, TILE_EXT, TILE_HALO)
 
 
 def _extend(xr, xi, hr, hi, jm: int):
@@ -90,10 +103,23 @@ def reassigned_sliding_hop_reference(
 ):
     """Plain PyTorch version of the hop.  Same arguments and results as
     :func:`reassigned_sliding_hop`."""
-    bins = states[0].shape[-1]
-    cols, hop = dx.shape[1], dx.shape[2] // 2
     ax = torch.matmul(dx, upd)  # [S, cols, 4*bins]: dU_re | dU_im | dV_re | dV_im
     ah = torch.matmul(dh, upd)
+    return slide_reassigned(
+        ready, states, ax, ah, rot_r, rot_i, normq, freqb, hop=dx.shape[2] // 2, n=n, zpf=zpf,
+        coeffs=coeffs, inv_2pi=inv_2pi, inv_hop=inv_hop, latency_hops=latency_hops,
+    )
+
+
+def slide_reassigned(
+    ready, states, ax, ah, rot_r, rot_i, normq, freqb,
+    *, hop: int, n: int, zpf: int, coeffs: tuple, inv_2pi: float, inv_hop: float,
+    latency_hops: float,
+):
+    """The plain version's column loop, from the delta products ``ax, ah
+    [S, cols, 4*bins]`` of x and hx (dU_re | dU_im | dV_re | dV_im)."""
+    bins = states[0].shape[-1]
+    cols = ax.shape[1]
 
     def rotate(re, im):
         return re * rot_r - im * rot_i, re * rot_i + im * rot_r
@@ -129,7 +155,7 @@ def kernel_supports(zpf: int, n_terms: int) -> bool:
 def reassigned_sliding_hop(
     ready, states, dx, dh, upd, rot_r, rot_i, normq, freqb,
     *, n: int, zpf: int, coeffs: tuple, inv_2pi: float, inv_hop: float,
-    latency_hops: float,
+    latency_hops: float, tiles=None,
 ):
     """One hop of the sliding-analytic reassigned spectrogram.
 
@@ -144,6 +170,9 @@ def reassigned_sliding_hop(
         of the bin normalization, ``freqb`` the bin centre frequencies.
       n: window length; zpf: zero-padding factor (1 or 2); coeffs:
         cosine-sum window coefficients (at most 4).
+      tiles: ``hop_tiles(upd)``, which the kernel reads in place of
+        ``upd``; made here when not given (``SlidingReassigned`` keeps
+        it).  The plain version ignores it.
 
     Returns ``(new_states, freq, time, power)`` with the per-column
     outputs ``[S, cols, bins]`` float32.
@@ -174,11 +203,18 @@ def reassigned_sliding_hop(
             raise ValueError(f"{name}: want float32 on {dev}, got {x.dtype} on {x.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name}: want contiguous {shape}, got {tuple(x.shape)}")
-    if not kernel_supports(zpf, len(coeffs)) or s > 8 * 65535:
+    if not kernel_supports(zpf, len(coeffs)) or hop == 0 or s > 8 * 65535:
         raise ValueError(
             f"unsupported: cols {cols}, hop {hop}, zpf {zpf}, {len(coeffs)} window terms, "
             f"streams {s}"
         )
+    if tiles is None:
+        tiles = hop_tiles(upd)
+    tile_shape = (-(-bins // (TILE_EXT - 2 * TILE_HALO)), 2, -(-2 * hop // KC), 2 * TILE_EXT * KC)
+    if tiles.device != dev or tiles.dtype != torch.float32:
+        raise ValueError(f"tiles: want float32 on {dev}, got {tiles.dtype} on {tiles.device}")
+    if tuple(tiles.shape) != tile_shape or not tiles.is_contiguous():
+        raise ValueError(f"tiles: want contiguous {tile_shape}, got {tuple(tiles.shape)}")
 
     from openmeters_tpu_torch.ops._build import load_library
 
@@ -194,7 +230,7 @@ def reassigned_sliding_hop(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.reassigned_hop_launch(
             *(x.data_ptr() for x in states), *(x.data_ptr() for x in new_states),
-            dx.data_ptr(), dh.data_ptr(), upd.data_ptr(),
+            dx.data_ptr(), dh.data_ptr(), tiles.data_ptr(),
             rot_r.data_ptr(), rot_i.data_ptr(), normq.data_ptr(), freqb.data_ptr(),
             freq.data_ptr(), time.data_ptr(), power.data_ptr(),
             s, cols, hop, bins, int(ready), zpf, terms,

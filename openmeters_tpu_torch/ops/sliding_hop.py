@@ -14,15 +14,18 @@ as float32 or packed as dB to uint16 codes over [-144, +12] dB.
   precomputed, ``[S, cols, bins]`` complex64 (an rFFT of the deltas), for
   configs whose update matrices are too large to stream.
 
-Both launch ``csrc/sliding_hop.cu`` (two instances of one kernel) for CUDA
-tensors and run their plain versions for CPU tensors; on any other device
-they raise.  ``.launches`` on each counts its kernel's launches.
+They launch ``csrc/sliding_hop_deltas.cu`` (B1a: the delta products on the
+tensor cores in 3xTF32, then the slide) and ``csrc/sliding_hop.cu`` (B1b)
+for CUDA tensors and run their plain versions for CPU tensors; on any
+other device they raise.  ``.launches`` on each counts its kernel's
+launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from openmeters_tpu_torch.ops.update_tiles import KC, update_tiles
 from openmeters_tpu_torch.utils.level import power_to_db
 
 # fixed u16 dB storage domain of the classic spectrogram
@@ -31,6 +34,7 @@ CLASSIC_DB_STORE_HI = 12.0
 CLASSIC_DB_STORE_RANGE = CLASSIC_DB_STORE_HI - CLASSIC_DB_STORE_LO
 STORE_SCALE = 65535.0 / CLASSIC_DB_STORE_RANGE
 MAX_REACH = 3  # the kernel's halo: len(coeffs) - 1
+TILE_EXT = 128  # bins B1a slides per block, halo included
 
 
 def pack_classic_db(db: torch.Tensor) -> torch.Tensor:
@@ -110,9 +114,16 @@ def _window_args(coeffs: tuple) -> tuple:
     return (float(coeffs[0]), *halves, reach)
 
 
+def hop_tiles(upd_r: torch.Tensor, upd_i: torch.Tensor) -> torch.Tensor:
+    """The ``[hop, bins]`` update matrices as the B1a kernel stages them
+    (``ops/update_tiles.py``: parts re | im, bin tiles of 128 with a halo
+    of 3)."""
+    return update_tiles(torch.cat([upd_r, upd_i], dim=1), upd_r.shape[1], 2, TILE_EXT, MAX_REACH)
+
+
 def sliding_hop(
     ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm,
-    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool = True,
+    *, n: int, coeffs: tuple, floor_db: float, emit_codes: bool = True, tiles=None,
 ):
     """One hop of the sliding DFT from sample deltas (B1a).
 
@@ -125,6 +136,10 @@ def sliding_hop(
         past bin ``len(coeffs) - 1``.
       n: FFT size; coeffs: cosine-sum window coefficients (at most 4).
       emit_codes: uint16 dB codes if true, else float32 power.
+      tiles: ``hop_tiles(upd_r, upd_i)``, which the kernel reads in place
+        of ``upd_r, upd_i``; made here when not given (callers that hop
+        many times keep it, as ``SlidingSTFT`` does).  The plain version
+        ignores it.
 
     Returns ``(fr2, fi2, out)``, ``out`` ``[S, cols, bins]``.
     """
@@ -146,8 +161,12 @@ def sliding_hop(
         "dc_corr": (dc_corr, (bins,), f32), "norm": (norm, (bins,), f32),
     }, fr.device, "sliding_hop")
     reach = len(coeffs) - 1
-    if reach > MAX_REACH or hop % 4 or s > 8 * 65535:
+    if reach > MAX_REACH or hop % 4 or hop == 0 or s > 8 * 65535:
         raise ValueError(f"unsupported: reach {reach}, hop {hop}, streams {s}")
+    if tiles is None:
+        tiles = hop_tiles(upd_r, upd_i)
+    tile_shape = (-(-bins // (TILE_EXT - 2 * MAX_REACH)), 2, -(-hop // KC), TILE_EXT * KC)
+    _check({"tiles": (tiles, tile_shape, f32)}, fr.device, "sliding_hop")
 
     from openmeters_tpu_torch.ops._build import load_library
 
@@ -158,9 +177,8 @@ def sliding_hop(
     with torch.cuda.device(fr.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sliding_hop_launch(
-            fr.data_ptr(), fi.data_ptr(), deltas.data_ptr(),
-            upd_r.data_ptr(), upd_i.data_ptr(), rot_r.data_ptr(),
-            rot_i.data_ptr(), dc_corr.data_ptr(), norm.data_ptr(),
+            fr.data_ptr(), fi.data_ptr(), deltas.data_ptr(), tiles.data_ptr(),
+            rot_r.data_ptr(), rot_i.data_ptr(), dc_corr.data_ptr(), norm.data_ptr(),
             fr2.data_ptr(), fi2.data_ptr(), out.data_ptr(),
             s, cols, hop, bins, int(ready),
             1.0 / n, *_window_args(coeffs), len(coeffs),

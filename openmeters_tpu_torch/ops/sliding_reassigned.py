@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from openmeters_tpu_torch.ops.framing import FrameBuffer
-from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+from openmeters_tpu_torch.ops.reassigned_hop import hop_tiles, reassigned_sliding_hop
 from openmeters_tpu_torch.utils.windows import (
     WindowKind,
     fft_bin_normalization,
@@ -186,7 +186,9 @@ class SlidingReassigned:
             normq=(0.25 * fft_bin_normalization(w, self.pfft)).astype(np.float32),
             freqb=np.arange(self.bins, dtype=np.float32) * (self.sample_rate / self.pfft),
         )
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrs.items()}
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrs.items()}
+        t["tiles"] = hop_tiles(t["upd"])  # upd as the kernel stages it
+        return t
 
     # -- state ---------------------------------------------------------------
 
@@ -312,6 +314,7 @@ class SlidingReassigned:
             inv_2pi=self.sample_rate / (2.0 * np.pi),
             inv_hop=1.0 / hop,
             latency_hops=self.center / hop,
+            tiles=t["tiles"],
         )
         anchored = (state["anchored"] or refresh) and warm
         new_state = dict(zip(STATE_KEYS, new8))

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from openmeters_tpu_torch.ops.framing import FrameBuffer
-from openmeters_tpu_torch.ops.sliding_hop import sliding_hop, sliding_hop_spectra
+from openmeters_tpu_torch.ops.sliding_hop import hop_tiles, sliding_hop, sliding_hop_spectra
 from openmeters_tpu_torch.utils.windows import WindowKind
 
 
@@ -111,6 +111,13 @@ class SlidingSTFT:
         ``device``."""
         return tuple(torch.from_numpy(a).to(device) for a in self._consts()[2:])
 
+    @functools.lru_cache(maxsize=None)
+    def _tiles(self, device: torch.device) -> torch.Tensor:
+        """The update matrices as the B1a kernel stages them
+        (:func:`~openmeters_tpu_torch.ops.sliding_hop.hop_tiles`), on
+        ``device``."""
+        return hop_tiles(*self._updates(device))
+
     def step_fused(self, sdft: dict, info: dict, norm: torch.Tensor, floor_db: float,
                    emit_codes: bool):
         """One hop: slide, window and power, emitted as float32 power or as
@@ -163,7 +170,8 @@ class SlidingSTFT:
                   floor_db=float(floor_db), emit_codes=emit_codes)
         if self.whole_row:
             fr2, fi2, out = sliding_hop(
-                ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm, **kw
+                ready, fr, fi, deltas, upd_r, upd_i, rot_r, rot_i, dc_corr, norm, **kw,
+                tiles=self._tiles(dev),
             )
         else:
             fr2, fi2, out = sliding_hop_spectra(

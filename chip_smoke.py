@@ -5,8 +5,9 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. the card: name and power limit; f32 matmuls in full precision;
-2. build the CUDA kernel library from ``openmeters_tpu_torch/csrc`` (timed),
-   then find the tensor-core instructions (``HGMMA`` for ``wgmma``, ``HMMA``
+2. build the CUDA kernel library from ``openmeters_tpu_torch/csrc`` (timed)
+   and print each kernel's ptxas registers, shared memory and spills, then
+   find the tensor-core instructions (``HGMMA`` for ``wgmma``, ``HMMA``
    for ``mma.sync``) in the SASS of the two kernels that run their delta
    products on the tensor cores, B1a and B2 (``cuobjdump -sass``);
 3. the ``sliding_hop`` kernel against its plain PyTorch version on the same
@@ -54,13 +55,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
     hops (the trigger's history first fills at hop 38), 200 timed with
     every output leaf folded into a device scalar, counting the search's
     launches (one a hop) and ``window_rows``'s (two a hop), and a profile;
-14. the bin-tiled ``sliding_hop_spectra`` kernel (B1b) against its plain
-    version at S=8192, for every ``ready``: 16384/512 (one column, power),
-    16384/128 (two columns, power and codes), 4096/2048 Blackman-Harris
-    (the stencil's halo across 17 tiles); then ``sliding_hop``'s power
-    output at 8192/128; plus B1b's times at 16384/512, and the whole
-    sliding path there (the deltas' rFFT and B1b) against the direct
-    windowed rFFT;
+14. the ``sliding_hop_spectra`` kernel (B1b: one block a stream's row,
+    the delta spectra computed in it) against its plain version at S=8192,
+    for every ``ready``: 16384/512 (one column, power), 16384/128 (two
+    columns, power and codes), 4096/2048 Blackman-Harris; then
+    ``sliding_hop``'s power output at 8192/128, and the bin-tiled route
+    past one block's row (32768/1024: the deltas' rFFT and the tiled
+    kernel); plus B1b's times at 16384/512, where the kernel alone is the
+    whole sliding path of a steady hop, against the direct windowed rFFT;
 15. the ``three_band`` crossover kernel against its plain per-sample loop
     at S=8192 x 2 lanes x 256 samples with NaN and infinite samples, both
     cascade settings (bit-exact), plus the times;
@@ -669,11 +671,10 @@ def phase7_reassigned_columns(dev) -> dict:
             p1, k1, k2, p2 = (time_cuda(f, 5) for f in (plain, kern, kern, plain))
             result["ms"] = (k1 + k2) / 2
             result["plain_ms"] = (p1 + p2) / 2
-            # forward and inverse h-point FFTs, then U and V at n points
+            # the transforms the kernel runs, n points each: the real frame's
+            # half-length FFT, the two parities of the pruned inverse, U and V
             out = reassigned_columns(frames, **kw)
-            result.update(bound(
-                nbytes(frames, *out), fft_flops(h, 2 * FLAGSHIP_S) + fft_flops(n, 2 * FLAGSHIP_S)
-            ))
+            result.update(bound(nbytes(frames, *out), fft_flops(n, 5 * FLAGSHIP_S)))
             result["library_ms"] = time_cuda(lambda: columns_fft_chain(frames, n), 5)  # noqa: B023
             del out
             log(
@@ -1146,6 +1147,7 @@ def phase13_default_s8192(dev) -> dict:
 
 def phase14_sliding_spectra(dev) -> dict:
     from openmeters_tpu_torch.ops.sliding_hop import (
+        block_fits,
         sliding_hop,
         sliding_hop_reference,
         sliding_hop_spectra,
@@ -1163,11 +1165,14 @@ def phase14_sliding_spectra(dev) -> dict:
         ("16384/128", SlidingSTFT(16384, 128, 256, WindowKind.HANN), (False, True)),
         ("4096/2048", SlidingSTFT(4096, 2048, 2048, WindowKind.BLACKMAN_HARRIS), (False, True)),
         ("8192/128 (B1a)", SlidingSTFT(8192, 128, 256, WindowKind.HANN), (False,)),
+        # past one block's row: the deltas' rFFT and the bin-tiled kernel
+        ("32768/1024 (tiled)", SlidingSTFT(32768, 1024, 1024, WindowKind.HANN), (False, True)),
     ]
     result = {}
     for label, sl, modes in cases:
         n, cols, bins = sl.fft_size, sl.frames.cols_cap, sl.bins
         check(sl.whole_row == label.endswith("(B1a)"), f"{label}: the other hop variant")
+        check(block_fits(n) != label.endswith("(tiled)"), f"{label}: the other B1b route")
         norm = torch.from_numpy(fft_bin_normalization(window_coefficients(sl.window, n), n)).to(dev)
         coeffs = tuple(float(a) for a in sl._stencil())
         kw = dict(n=n, coeffs=coeffs, floor_db=DB_FLOOR)
@@ -1177,7 +1182,7 @@ def phase14_sliding_spectra(dev) -> dict:
             args = (fr, fi, deltas, *sl._updates(dev), rot_r, rot_i, dc, norm)
             kern_fn, plain_fn = sliding_hop, sliding_hop_reference
         else:
-            args = (fr, fi, torch.fft.rfft(deltas, n=n), rot_r, rot_i, dc, norm)
+            args = (fr, fi, deltas, rot_r, rot_i, dc, norm)
             kern_fn, plain_fn = sliding_hop_spectra, sliding_hop_spectra_reference
         for emit_codes in modes:
             for ready in range(cols + 1):
@@ -1214,41 +1219,44 @@ def phase14_sliding_spectra(dev) -> dict:
                 del kr, ki, ko, rr, ri, ro
 
         if label == "16384/512":
-            # plain, kernel, kernel, plain on the same card within this run
             reps = 20
             kern = lambda: sliding_hop_spectra(cols, *args, **kw, emit_codes=False)  # noqa: E731, B023
             plain = lambda: sliding_hop_spectra_reference(cols, *args, **kw, emit_codes=False)  # noqa: E731, B023
-            p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
-            result["ms"] = (k1 + k2) / 2
-            result["plain_ms"] = (p1 + p2) / 2
-            # per bin and column: slide 8, stencil 2 + 4 per reach, DC 2, power 4
+            # per bin and column: slide 8, stencil 2 + 4 per reach, DC 2, power 4;
+            # per column the delta transform: R/2 + 1 twiddled P-point FFTs
+            # (P = hop rounded up to a power of two, R = n/P), 2 operations a
+            # point to twiddle the samples
             out = kern()
-            flops = s * cols * bins * (16.0 + 4 * (len(coeffs) - 1))
+            pts = 1 << (sl.hop - 1).bit_length()
+            count = n // pts // 2 + 1
+            flops = s * cols * (bins * (16.0 + 4 * (len(coeffs) - 1)) + 2.0 * pts * count)
+            flops += fft_flops(pts, s * cols * count)
             result.update(bound(nbytes(*args, *out), flops))
             # the library call: one rFFT of the hop's windowed frames
             frames = torch.randn((s, cols, n), generator=gen, device=dev)
             result["library_ms"] = time_cuda(lambda: torch.fft.rfft(frames), reps)  # noqa: B023
-            # the whole sliding path (the deltas' rFFT, then the kernel) against
-            # the direct path that the analyzer takes at fft/hop <= 16 (mean
-            # removed, window, rFFT, power), on the same card in this run
+            # the kernel is the whole sliding path of a steady hop (it
+            # transforms the deltas itself); the direct path is the one the
+            # analyzer takes at fft/hop <= 16 (mean removed, window, rFFT,
+            # power).  Plain, direct, kernel, kernel, direct, plain on the
+            # same card within this run.
             window = torch.from_numpy(window_coefficients(sl.window, n)).to(dev)
-
-            def sliding_path():
-                dspec = torch.fft.rfft(deltas, n=n)  # noqa: B023
-                return sliding_hop_spectra(cols, fr, fi, dspec, rot_r, rot_i, dc, norm, **kw,  # noqa: B023
-                                           emit_codes=False)
 
             def direct_path():
                 spec = torch.fft.rfft((frames - frames.mean(dim=-1, keepdim=True)) * window)  # noqa: B023
                 return (spec.real.square() + spec.imag.square()) * norm  # noqa: B023
 
-            d1, w1, w2, d2 = (time_cuda(f, reps) for f in (direct_path, sliding_path, sliding_path, direct_path))
+            p1, d1, k1, k2, d2, p2 = (
+                time_cuda(f, reps) for f in (plain, direct_path, kern, kern, direct_path, plain)
+            )
+            result["ms"] = (k1 + k2) / 2
+            result["plain_ms"] = (p1 + p2) / 2
             del frames, out
             log(
-                f"phase 14 timing at 16384/512 S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"phase 14 timing at 16384/512 S={s}: kernel (the sliding path) {k1:.4f}/{k2:.4f} ms, "
+                f"plain {p1:.4f}/{p2:.4f} ms, direct path (mean, window, rfft, power) {d1:.4f}/{d2:.4f} ms, "
                 f"rfft of the windowed frames {result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
-                f"({result['bound_by']}); sliding path (deltas' rfft + kernel) {w1:.4f}/{w2:.4f} ms, "
-                f"direct path (mean, window, rfft, power) {d1:.4f}/{d2:.4f} ms [{card_line()}]"
+                f"({result['bound_by']}) [{card_line()}]"
             )
         del fr, fi, deltas, args
         torch.cuda.empty_cache()

@@ -122,6 +122,15 @@ def load_library() -> ctypes.CDLL:
                 p,  # stream
             ]
             lib.sliding_hop_spectra_launch.restype = ctypes.c_int
+            lib.sliding_hop_block_launch.argtypes = [
+                p, p, p, p, p, p, p, p, p,  # fr fi deltas build_tw fft_tw rot_r rot_i dc norm
+                p, p, p,  # fr_out fi_out out
+                i, i, i, i, i,  # S cols hop n ready
+                f, f, f, f, f, i, i,  # inv_n a0 h1 h2 h3 reach dc_bins
+                f, f, i,  # floor_db store_scale emit_codes
+                p,  # stream
+            ]
+            lib.sliding_hop_block_launch.restype = ctypes.c_int
             lib.reassigned_hop_launch.argtypes = [
                 *[p] * 16,  # eight states in, eight out
                 p, p, p,  # dx dh tiles
@@ -134,7 +143,7 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.reassigned_hop_launch.restype = ctypes.c_int
             lib.reassigned_columns_launch.argtypes = [
-                p, p, p,  # frames twiddles norm
+                p, p, p, p, p,  # frames twiddles dif_twiddles dit_twiddles norm
                 p, p, p,  # freq time power
                 i, i, i,  # rows n nterms
                 f, f, f, f, f, f, f,  # a0 halves[3] gs[3]

@@ -27,10 +27,12 @@ import math
 import numpy as np
 import torch
 
+from openmeters_tpu_torch.ops.block_fft import plan_table
 from openmeters_tpu_torch.utils.windows import cosine_sum_window, fft_bin_normalization
 
 MAX_TERMS = 4  # cosine-sum window terms the kernel takes
-MAX_H = 16384  # a complex f32 h-buffer of 128 KB fills one block's shared memory
+MAX_H = 16384  # two complex f32 n-point buffers (128 KB) fill one block's shared memory
+FFT_STAGES = 4  # radix-2 stages a pass of the kernel's n-point transforms
 
 
 def kernel_supports(n: int, h: int, n_terms: int = 2) -> bool:
@@ -108,7 +110,8 @@ def reassigned_columns_reference(
 @functools.lru_cache(maxsize=None)
 def _tables(n: int, h: int, coeffs: tuple, device: torch.device):
     """Twiddles ``exp(-2 pi i k / h)``, ``k < h/2`` (computed in float64,
-    stored as interleaved float32), and the bin normalization, on ``device``."""
+    stored as interleaved float32; the kernel's split step reads them), and
+    the bin normalization, on ``device``."""
     k = np.arange(h // 2, dtype=np.float64)
     ang = -2.0 * np.pi * k / h
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
@@ -145,6 +148,8 @@ def reassigned_columns(
 
     lib = load_library()
     tw, norm = _tables(n, h, tuple(float(a) for a in coeffs), dev)
+    log2n = n.bit_length() - 1
+    dif_tw, dit_tw = (plan_table(log2n, FFT_STAGES, dit, dev) for dit in (False, True))
     bins = n // 2 + 1
     freq, time, power = (
         torch.empty((rows, bins), dtype=torch.float32, device=dev) for _ in range(3)
@@ -156,7 +161,7 @@ def reassigned_columns(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.reassigned_columns_launch(
-            frames.data_ptr(), tw.data_ptr(), norm.data_ptr(),
+            frames.data_ptr(), tw.data_ptr(), dif_tw.data_ptr(), dit_tw.data_ptr(), norm.data_ptr(),
             freq.data_ptr(), time.data_ptr(), power.data_ptr(),
             rows, n, terms, float(coeffs[0]), *halves, *gs,
             float(c["bin_hz"]), float(c["inv_2pi"]), float(c["inv_hop"]),

@@ -8,8 +8,8 @@ delta product and a phasor rotation,
 
 and the window is applied in the frequency domain (see ``ops/sliding_hop``).
 Configs whose ``[hop, bins]`` update matrices are small take the hop that
-computes the delta products itself (B1a); the others take the delta
-spectra from ``torch.fft.rfft`` of the deltas and the hop that reads them
+computes the delta products itself (B1a); the others take the hop that
+computes each column's delta spectrum as a pruned FFT of its samples
 (B1b), by :func:`fits_whole_row`.  An exact ``torch.fft.rfft`` re-anchor
 every ``refresh_steps`` hops bounds f32 drift.  The hop counter ``count``
 and the ``anchored`` flag are shared by all streams and kept as host
@@ -30,12 +30,12 @@ from openmeters_tpu_torch.utils.windows import WindowKind
 
 
 def fits_whole_row(hop: int, bins: int) -> bool:
-    """Whether a config takes the hop from sample deltas (B1a): its
+    """Whether a config takes the hop over update matrices (B1a): its
     ``[hop, bins]`` update matrices, re and im in f32, fit 6 MiB.  Larger
-    configs take the delta spectra (B1b).  The bound is the JAX package's
-    VMEM budget (``ops/pallas_sliding.py::fits_vmem``), kept so that each
-    config takes the same formulation, B1a or B1b, that the JAX package's
-    kernels take for it."""
+    configs take B1b, which transforms the deltas by FFT.  The bound is the
+    JAX package's VMEM budget (``ops/pallas_sliding.py::fits_vmem``), kept
+    so that each config takes the same formulation, B1a or B1b, that the
+    JAX package's kernels take for it."""
     return 2 * 4 * hop * bins <= 6 * 2**20
 
 
@@ -129,8 +129,9 @@ class SlidingSTFT:
         (``F0 = rot * (f + D0)``, ``D0`` column 0's delta spectrum), so
         ``f' = conj(rot) F0_exact - D0`` makes it land on the freshly
         computed spectrum.  On the B1a path ``D0`` is ``d0 @ upd``; on the
-        B1b path it is the delta spectrum the hop reads, so that path builds
-        no update matrices."""
+        B1b path it is ``torch.fft.rfft(d0, n)``, on refresh hops only: a
+        steady B1b hop is one kernel launch, which computes the delta
+        spectra itself, and that path builds no update matrices."""
         fb = self.frames
         n, h = self.fft_size, self.hop
         dev = info["buf"].device
@@ -149,8 +150,6 @@ class SlidingSTFT:
         )  # [S, cols, h]
         if self.whole_row:
             upd_r, upd_i = self._updates(dev)
-        else:
-            dspec = torch.fft.rfft(deltas, n=n)  # [S, cols, bins] complex64
 
         fr, fi = sdft["re"], sdft["im"]
         if refresh:
@@ -158,11 +157,12 @@ class SlidingSTFT:
             sr, si = spec.real, spec.imag
             tr = sr * rot_r + si * rot_i  # F0 * conj(rot)
             ti = si * rot_r - sr * rot_i
+            d0 = deltas[:, 0]
             if self.whole_row:
-                d0 = deltas[:, 0]
                 dr, di = d0 @ upd_r, d0 @ upd_i
             else:
-                dr, di = dspec[:, 0].real, dspec[:, 0].imag
+                d0 = torch.fft.rfft(d0, n=n)
+                dr, di = d0.real, d0.imag
             fr = (tr - dr).contiguous()
             fi = (ti - di).contiguous()
 
@@ -175,7 +175,7 @@ class SlidingSTFT:
             )
         else:
             fr2, fi2, out = sliding_hop_spectra(
-                ready, fr, fi, dspec, rot_r, rot_i, dc_corr, norm, **kw
+                ready, fr, fi, deltas, rot_r, rot_i, dc_corr, norm, **kw
             )
         new_sdft = {
             "re": fr2,

@@ -399,20 +399,23 @@ def _assert_hop_close(kr, ki, kout, rr, ri, rout, emit_codes, where):
 @pytest.mark.parametrize(
     "fft,hop,window,s,cols",
     [(16384, 512, "hann", 20, 1), (16384, 128, "hann", 9, 2), (4096, 2048, "blackman_harris", 17, 1),
-     (488, 16, "blackman_harris", 11, 3), (244, 16, "hann", 8, 2), (486, 8, "blackman", 5, 4)],
+     (64, 16, "blackman_harris", 11, 3), (2048, 1024, "hann", 8, 2), (512, 24, "blackman", 5, 4),
+     (128, 4, "hann", 6, 2), (256, 8, "blackman_harris", 7, 2)],
 )
 def test_sliding_hop_spectra_kernel_matches_plain(card, fft, hop, window, s, cols):
-    """B1b in both output modes, every ``ready``, at the tile edges of its
-    122-bin tiles: 8193 = 67 * 122 + 19 bins; 245 = 2 * 122 + 1 and 123 =
-    122 + 1, the Nyquist bin alone at the first lane of the last tile (its
-    reflected neighbours in the tile before); 244 = 2 * 122, the Nyquist
-    bin at the last lane of a tile."""
+    """B1b's whole-row kernel in both output modes, every ``ready``, at the
+    edges of its design: 16384 points (17 bins a thread, the Nyquist bin
+    alone in the last), the smallest n (4 bins of 512 threads busy), hop =
+    n/2 (R = 2: the transforms r = 0 and the self-paired r = R/2 only), 4
+    columns of a hop that is not a power of two (24, zero-padded to 32), and
+    transforms shorter than the layout's 16-point groups (17 of 4 and of 8
+    points, whose area ends inside a group)."""
     sl, fr, fi, deltas, norm, kw = _slide_inputs(card, fft, hop, window, s, cols, fft + hop)
+    assert thop.block_fits(fft)
     rot_r, rot_i, dc = sl._rows(card)
-    dspec = torch.fft.rfft(deltas, n=fft)
     for emit_codes in (False, True):
         for ready in range(cols + 1):
-            args = (ready, fr, fi, dspec, rot_r, rot_i, dc, norm)
+            args = (ready, fr, fi, deltas, rot_r, rot_i, dc, norm)
             before = thop.sliding_hop_spectra.launches
             got = thop.sliding_hop_spectra(*args, **kw, emit_codes=emit_codes)
             assert thop.sliding_hop_spectra.launches == before + 1
@@ -421,6 +424,23 @@ def test_sliding_hop_spectra_kernel_matches_plain(card, fft, hop, window, s, col
             _assert_hop_close(*got, *ref, emit_codes, (emit_codes, ready))
             if ready == 0:
                 assert torch.equal(got[0], fr) and torch.equal(got[1], fi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft,hop,window,s,cols", [(32768, 1024, "blackman_harris", 10, 2)])
+def test_sliding_hop_spectra_tiled_route_matches_plain(card, fft, hop, window, s, cols):
+    """Past ``BLOCK_MAX_N`` the wrapper takes the deltas' rFFT and the
+    bin-tiled kernel: 16385 = 134 * 122 + 37 bins."""
+    sl, fr, fi, deltas, norm, kw = _slide_inputs(card, fft, hop, window, s, cols, fft + hop)
+    assert not thop.block_fits(fft)
+    rot_r, rot_i, dc = sl._rows(card)
+    for emit_codes in (False, True):
+        for ready in range(cols + 1):
+            args = (ready, fr, fi, deltas, rot_r, rot_i, dc, norm)
+            got = thop.sliding_hop_spectra(*args, **kw, emit_codes=emit_codes)
+            ref = thop.sliding_hop_spectra_reference(*args, **kw, emit_codes=emit_codes)
+            torch.cuda.synchronize()
+            _assert_hop_close(*got, *ref, emit_codes, (emit_codes, ready))
 
 
 @pytest.mark.cuda
@@ -445,12 +465,14 @@ def test_sliding_hop_power_mode_matches_plain(card, fft, hop, window, s):
 def test_sliding_hop_spectra_rejects_bad_inputs(card):
     sl, fr, fi, deltas, norm, kw = _slide_inputs(card, 256, 16, "hann", 4, 2, 0)
     rot_r, rot_i, dc = sl._rows(card)
-    dspec = torch.fft.rfft(deltas, n=256)
-    with pytest.raises(ValueError):  # split re/im planes, not complex64
-        thop.sliding_hop_spectra(1, fr, fi, torch.view_as_real(dspec).contiguous(), rot_r, rot_i, dc, norm,
+    with pytest.raises(ValueError):  # delta spectra, not sample deltas
+        thop.sliding_hop_spectra(1, fr, fi, torch.fft.rfft(deltas, n=256), rot_r, rot_i, dc, norm,
                                  **kw, emit_codes=False)
     with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
-        thop.sliding_hop_spectra(1, fr, fi, dspec.cpu(), rot_r, rot_i, dc, norm, **kw, emit_codes=False)
+        thop.sliding_hop_spectra(1, fr, fi, deltas.cpu(), rot_r, rot_i, dc, norm, **kw, emit_codes=False)
+    with pytest.raises(ValueError):  # a hop longer than half the FFT
+        wide = torch.zeros((4, 2, 129), device=card)
+        thop.sliding_hop_spectra(1, fr, fi, wide, rot_r, rot_i, dc, norm, **kw, emit_codes=False)
 
 
 @pytest.mark.cuda

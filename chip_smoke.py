@@ -42,7 +42,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     (``corr_dots_sums_ring``), from given rows (``corr_dots_sums``) and
     dots alone (``corr_dots``), plus kernel, plain and library times; then
     from the ring at 192 kHz (S=2048, nfft 32768, its buffer in global
-    scratch);
+    scratch), plus kernel, plain and library times there too;
 11. the ``window_rows`` kernel bit-exact against ``torch.gather`` at
     ``[8192, 19456]`` into 4800 and 4802 samples and three windows a row,
     plus the times;
@@ -868,6 +868,24 @@ def search_inputs(s: int, gen, dev, lanes: int = OSC_LANES, kcap: int = OSC_KCAP
             "wlen": search + klen, "shift": (-off).contiguous()}
 
 
+def library_chain(work, tmpl, shift, nfft: int, out: int):
+    """The library calls computing the search on the materialised window:
+    cuFFT for the dots, ``cumsum`` for the sums.  Returns ``(dots,
+    dots and sums)`` as two closures."""
+    k = torch.arange(nfft // 2 + 1, device=work.device, dtype=torch.int64)
+    ang = (2.0 * math.pi / nfft) * torch.remainder(k[None, :] * shift.long()[:, None], nfft).float()
+    ph = torch.polar(torch.ones_like(ang), ang)
+
+    def dots():
+        spec = torch.fft.rfft(work, n=nfft) * torch.conj(torch.fft.rfft(tmpl, n=nfft)) * ph
+        return torch.fft.irfft(spec, n=nfft)[:, :out]
+
+    def sums():
+        return dots(), torch.cumsum(torch.cat([work, work * work]), dim=-1)
+
+    return dots, sums
+
+
 def phase10_corr(dev) -> dict:
     from openmeters_tpu_torch.ops import corr
     from openmeters_tpu_torch.ops.rows import window_rows_reference
@@ -893,17 +911,7 @@ def phase10_corr(dev) -> dict:
             lambda: corr.corr_dots_reference(work, tmpl, shift, OSC_NFFT, OSC_OUT),
         ),
     }
-    # the library chain: cuFFT and cumsum on the materialised window
-    k = torch.arange(OSC_NFFT // 2 + 1, device=dev, dtype=torch.int64)
-    ang = (2.0 * math.pi / OSC_NFFT) * torch.remainder(k[None, :] * shift.long()[:, None], OSC_NFFT).float()
-    ph = torch.polar(torch.ones_like(ang), ang)
-
-    def library_dots():
-        spec = torch.fft.rfft(work, n=OSC_NFFT) * torch.conj(torch.fft.rfft(tmpl, n=OSC_NFFT)) * ph
-        return torch.fft.irfft(spec, n=OSC_NFFT)[:, :OSC_OUT]
-
-    def library_sums():
-        return library_dots(), torch.cumsum(torch.cat([work, work * work]), dim=-1)
+    library_dots, library_sums = library_chain(work, tmpl, shift, OSC_NFFT, OSC_OUT)
 
     # one forward and one inverse complex transform a stream
     flops = fft_flops(OSC_NFFT, 2 * s)
@@ -934,7 +942,7 @@ def phase10_corr(dev) -> dict:
             f"{p1:.4f}/{p2:.4f} ms, cuFFT+cumsum chain {lib:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) [{card_line()}]"
         )
-    del x, ring, work, tmpl, ph
+    del x, ring, work, tmpl, library_dots, library_sums
     torch.cuda.empty_cache()
 
     # 192 kHz: the buffer no longer fits shared memory and lives in scratch
@@ -946,15 +954,19 @@ def phase10_corr(dev) -> dict:
     torch.cuda.synchronize()
     err = corr_errors(got, ref)
     check_corr(err, "phase 10 corr_dots_sums_ring at 192 kHz")
+    work = window_rows_reference(x["ring"], x["starts"].long().clamp(0, lanes - wcap), wcap).contiguous()
+    _, library_sums = library_chain(work, x["tmpl"], x["shift"], nfft, out)
     kern = lambda: corr.corr_dots_sums_ring(*args)  # noqa: E731
     plain = lambda: corr.corr_dots_sums_ring_reference(*args)  # noqa: E731
     p1, k1, k2, p2 = (time_cuda(f, 3) for f in (plain, kern, kern, plain))
+    lib = time_cuda(library_sums, 3)
     log(
         f"phase 10 corr_dots_sums_ring at 192 kHz S={s} nfft {nfft} out {out} (global scratch): "
         + ", ".join(f"{key} {v:.3e}" for key, v in err.items() if not key.endswith("_abs"))
-        + f" of their scale; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{card_line()}]"
+        + f" of their scale; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"cuFFT+cumsum chain {lib:.4f} ms [{card_line()}]"
     )
-    del x, args, got, ref
+    del x, args, got, ref, work, library_sums
     torch.cuda.empty_cache()
     return results
 

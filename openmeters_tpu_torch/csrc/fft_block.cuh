@@ -1,14 +1,15 @@
 // Register-resident complex f32 FFTs for one thread block, over a buffer in
 // shared memory.
 //
-// Used by reassigned_columns.cu (B3) and sliding_hop.cu (B1b).  A pass takes
-// r radix-2 stages at once (r <= MAXB, a template argument of the plan): each
-// thread loads a group of 2^r points into registers, runs the r stages'
-// butterflies and twiddles there, and writes them back, so a transform of
-// 2^L points takes ceil(L / MAXB) passes, each ending in one __syncthreads()
-// (the radix-2 header, fft_radix2.cuh, takes ceil(L / 2)).  The
-// butterflies are those of the radix-2 transforms, in the same order and
-// with the same twiddles, so the rounding is that of the radix-2 passes.
+// Used by reassigned_columns.cu (B3), sliding_hop.cu (B1b) and
+// corr_search.cu (B4-B6).  A pass takes r radix-2 stages at once (r <= MAXB,
+// a template argument of the plan): each thread loads a group of 2^r points
+// into registers, runs the r stages' butterflies and twiddles there, and
+// writes them back, so a transform of 2^L points takes ceil(L / MAXB)
+// passes, each ending in one __syncthreads().  The butterflies are those of
+// the radix-2 transforms, in the same order and with the same twiddles, so
+// the rounding is that of radix-2 passes.  The buffer may be in shared or
+// in global memory: the barrier orders both within the block.
 //
 // Layout.  Point i of the buffer lives at slot_of(i): its low four bits
 // XOR the fold of the higher nibbles, (i ^ i>>4 ^ i>>8 ^ i>>12) & 15, so
@@ -47,6 +48,27 @@ __device__ __forceinline__ float2 block_twiddle(const float2* ptw, int k) {
   return w;
 }
 
+// r stages of decimation in frequency on one group in registers: x[j] is
+// point b + j Q, q = b mod Q, ptw the pass's table.
+template <int r, bool kInverse>
+__device__ __forceinline__ void dif_group(float2 (&x)[1 << r], int q, int Q, const float2* ptw) {
+  constexpr int R = 1 << r;
+  int off = q;  // stage s, butterfly j': entry off + j' Q
+#pragma unroll
+  for (int s = 0; s < r; ++s) {
+    const int half = R >> (s + 1);  // the span 2 Q half
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j & half) continue;
+      const float2 w = block_twiddle<kInverse>(ptw, off + (j & (half - 1)) * Q);
+      const float2 u = x[j], v = x[j + half];
+      x[j] = badd(u, v);
+      x[j + half] = bmul(bsub(u, v), w);
+    }
+    off += half * Q;
+  }
+}
+
 // r stages of decimation in frequency, half-spans 2^(lq + r - 1) down to
 // 2^lq: group {b + j Q}, Q = 2^lq, j < 2^r.
 template <int r, bool kInverse>
@@ -59,20 +81,7 @@ __device__ void dif_pass(float2* z, int lq, int groups, const float2* ptw) {
     float2 x[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) x[j] = z[slot_of(b + j * Q)];
-    int off = q;  // stage s, butterfly j': entry off + j' Q
-#pragma unroll
-    for (int s = 0; s < r; ++s) {
-      const int half = R >> (s + 1);  // the span 2 Q half
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (j & half) continue;
-        const float2 w = block_twiddle<kInverse>(ptw, off + (j & (half - 1)) * Q);
-        const float2 u = x[j], v = x[j + half];
-        x[j] = badd(u, v);
-        x[j + half] = bmul(bsub(u, v), w);
-      }
-      off += half * Q;
-    }
+    dif_group<r, kInverse>(x, q, Q, ptw);
 #pragma unroll
     for (int j = 0; j < R; ++j) z[slot_of(b + j * Q)] = x[j];
   }
@@ -121,9 +130,10 @@ __device__ __forceinline__ int pass_bits(int log2N, int i) {
 }
 
 // `count` transforms of 2^log2N points: natural order in, bit-reversed out.
-// ptw: the plan's table, plan_twiddles(log2N, MAXB, dit=False).
+// ptw: the plan's table, plan_twiddles(log2N, MAXB, dit=False).  The first
+// `done` passes are skipped (the caller ran them).
 template <int MAXB, bool kInverse>
-__device__ void block_fft_dif(float2* z, int log2N, int count, const float2* ptw) {
+__device__ void block_fft_dif(float2* z, int log2N, int count, const float2* ptw, int done = 0) {
   static_assert(MAXB >= 1 && MAXB <= 4, "passes of 2 to 16 points");
   if (log2N <= 0) return;
   const int passes = (log2N + MAXB - 1) / MAXB;
@@ -132,7 +142,7 @@ __device__ void block_fft_dif(float2* z, int log2N, int count, const float2* ptw
     const int r = pass_bits<MAXB>(log2N, i);
     const int lq = top - r;
     const int groups = count << (log2N - r);
-    switch (r) {
+    if (i >= done) switch (r) {
       case 1: dif_pass<1, kInverse>(z, lq, groups, ptw); break;
       case 2: dif_pass<2, kInverse>(z, lq, groups, ptw); break;
       case 3: if constexpr (MAXB >= 3) dif_pass<3, kInverse>(z, lq, groups, ptw); break;

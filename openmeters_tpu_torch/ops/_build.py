@@ -153,7 +153,7 @@ def load_library() -> ctypes.CDLL:
             lib.reassigned_columns_launch.restype = ctypes.c_int
             lib.corr_search_launch.argtypes = [
                 p, p, p,  # src starts tmpl
-                p, p, p, p,  # klen wlen shift twiddles
+                p, p, p, p, p,  # klen wlen shift dif_twiddles dit_twiddles
                 p, p, p, p,  # dots sx sxx wmean
                 p, i,  # scratch grid
                 i, i, i, i, i, i, i,  # rows src_len wcap tmpl_len n out_len sums

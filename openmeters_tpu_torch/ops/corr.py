@@ -23,21 +23,26 @@ each operand, the conjugate product times the integer-exact anchor phase,
 an irFFT; the sums from one cumsum.  Everything is float32: bf16- or
 TF32-class error in the dots (~3e-3 of the peak) jitters the trigger's
 argmax.  Each wrapper's ``launches`` counts its kernel launches.  The
-kernel takes any power-of-two ``nfft`` from 16: up to 16384 points its
-buffer is in shared memory, above that in a global scratch row per block.
+kernel takes any power-of-two ``nfft`` from 16 and runs its transforms on
+``csrc/fft_block.cuh`` (tables: :mod:`ops.block_fft`): up to 16384 points
+its buffer is in shared memory, above that in a global scratch row per
+block, with the prefix sums and the half-length inverse's input in shared
+memory where they fit (at 32768 points, 192 kHz, both do).
 """
 
 from __future__ import annotations
 
-import functools
 import math
 
-import numpy as np
 import torch
 
+from openmeters_tpu_torch.ops.block_fft import plan_table
 from openmeters_tpu_torch.ops.rows import window_rows_reference
 
-MAX_SMEM = 232448  # bytes of shared memory one block may opt into on Hopper
+# bytes of dynamic shared memory one block may opt into on Hopper, beside the
+# kernel's 256 static bytes
+MAX_SMEM = 232448 - 256
+FFT_STAGES = 4  # radix-2 stages a pass of the kernel's transforms
 
 
 def shift_phase(shift, nfft: int):
@@ -87,15 +92,6 @@ def corr_dots_sums_ring_reference(ring, starts, tmpl, klen, wlen, shift, nfft: i
     return corr_dots_sums_reference(work, tmpl, klen, wlen, shift, nfft, out_len)
 
 
-@functools.lru_cache(maxsize=None)
-def _twiddles(nfft: int, device: torch.device):
-    """``exp(-2 pi i k / nfft)``, ``k < nfft/2``, computed in float64 and
-    stored as interleaved float32, on ``device``."""
-    ang = -2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
-
-
 def _launch(src, starts, tmpl, klen, wlen, shift, nfft, out_len, wcap, sums: bool):
     """Check the arguments and launch ``corr_search_kernel``; returns
     ``(dots, sx, sxx, wmean)`` (the last three ``None`` without sums)."""
@@ -123,12 +119,18 @@ def _launch(src, starts, tmpl, klen, wlen, shift, nfft, out_len, wcap, sums: boo
     from openmeters_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    # the kernel's buffer: the transform, or the window's two prefix arrays
+    # the kernel's buffer (float2): the transform, or the window's prefix sums;
+    # in a scratch row per block where it outgrows shared memory, and with it
+    # the half-length inverse's input where that does too
     words = max(nfft, wcap + 1) if sums else nfft
     scratch, grid = None, 0
     if 8 * words > MAX_SMEM:
         grid = min(s, torch.cuda.get_device_properties(dev).multi_processor_count)
-        scratch = torch.empty((grid, 2 * words), dtype=torch.float32, device=dev)
+        row = words + (nfft // 2 if 4 * nfft > MAX_SMEM else 0)
+        scratch = torch.empty((grid, 2 * row), dtype=torch.float32, device=dev)
+    log2n = nfft.bit_length() - 1
+    dif_tw = plan_table(log2n, FFT_STAGES, False, dev)
+    dit_tw = plan_table(log2n - 1, FFT_STAGES, True, dev)
     dots = torch.empty((s, out_len), dtype=torch.float32, device=dev)
     sx = sxx = wmean = None
     if sums:
@@ -143,7 +145,7 @@ def _launch(src, starts, tmpl, klen, wlen, shift, nfft, out_len, wcap, sums: boo
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.corr_search_launch(
             src.data_ptr(), ptr(st), tmpl.data_ptr(), ptr(kl), ptr(wl), sh.data_ptr(),
-            _twiddles(nfft, dev).data_ptr(),
+            dif_tw.data_ptr(), dit_tw.data_ptr(),
             dots.data_ptr(), ptr(sx), ptr(sxx), ptr(wmean), ptr(scratch), grid,
             s, src_len, wcap, tmpl.shape[1], nfft, out_len, int(sums), stream,
         )

@@ -227,6 +227,17 @@ def test_reassigned_kernels_reject_unsupported(card):
 # the search's shapes at 48 kHz (buffer in shared memory) and 192 kHz (in
 # global scratch): ring lanes, template cap, window cap, nfft, offsets
 SEARCH_SHAPES = {48_000: (19456, 4800, 7200, 8192, 2401), 192_000: (77312, 19200, 28800, 32768, 9601)}
+# the kernel design's edges, each with out_len = wcap + 1: the smallest n
+# (one pass each way), an odd stage count (11 and 10 stages: passes of 4, 4,
+# 3 and 4, 3, 3), the largest n in shared memory (96 kHz: twice the
+# products a thread stages before the inverse), and 192 kHz (the inverse's
+# input in shared memory beside the scratch row)
+SEARCH_EDGES = {
+    "n16": (40, 6, 12, 16, 13),
+    "n2048": (4000, 1200, 1800, 2048, 1801),
+    "n16384": (38912, 9600, 14400, 16384, 14401),
+    "n32768": (77312, 19200, 28800, 32768, 28801),
+}
 
 
 def _search_inputs(card, s, lanes=19456, kcap=4800):
@@ -245,9 +256,11 @@ def _search_inputs(card, s, lanes=19456, kcap=4800):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,rate", [(37, 48_000), (256, 48_000), (300, 192_000)])
+@pytest.mark.parametrize(
+    "s,rate", [(37, 48_000), (256, 48_000), (300, 192_000), *((40, edge) for edge in SEARCH_EDGES)]
+)
 def test_corr_search_kernels_match_plain(card, s, rate):
-    lanes, kcap, wcap, nfft, out = SEARCH_SHAPES[rate]
+    lanes, kcap, wcap, nfft, out = SEARCH_SHAPES[rate] if rate in SEARCH_SHAPES else SEARCH_EDGES[rate]
     ring, starts, tmpl, klen, wlen, shift = _search_inputs(card, s, lanes, kcap)
     before = tcorr.corr_dots_sums_ring.launches
     got = tcorr.corr_dots_sums_ring(ring, starts, tmpl, klen, wlen, shift, nfft, out, wcap)

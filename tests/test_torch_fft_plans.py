@@ -1,5 +1,5 @@
-"""The transform plans of the B1b and B3 kernels, emulated in float64 on the
-CPU against ``torch.fft``.
+"""The transform plans of the B1b, B3 and B4-B6 kernels, emulated in float64
+on the CPU against ``torch.fft`` and the plain versions.
 
 ``csrc/fft_block.cuh`` runs a block's FFTs as passes of up to 2^MAXB points
 in registers over a swizzled shared buffer; ``csrc/sliding_hop.cu`` (B1b)
@@ -8,10 +8,15 @@ samples as R = n / P twiddled P-point transforms (P = hop rounded up to a
 power of two), of which only r = 0..R/2 run; ``csrc/reassigned_columns.cu``
 (B3) runs the frame's real FFT as a half-length complex FFT and a split
 step, and the analytic inverse as two parity transforms cropped to the
-centre.  Here each plan is emulated step by step with the kernels' own
-index algebra -- group and twiddle indices of every pass, the swizzled
-layout, bit-reversed positions, the conjugate symmetry, the crop -- in
-float64, so an index fault shows as an O(1) error.  Also: the B1b wrapper's
+centre; ``csrc/corr_search.cu`` (B4-B6) packs window and template into one
+complex transform, splits the product spectrum by Hermitian symmetry with
+an integer-reduced anchor phase, folds it into a half-length inverse's
+input at compacted bit-reversed points, and scans the window's prefix sums
+in odd serial chunks.  Here each plan is emulated step by step with the
+kernels' own index algebra -- group and twiddle indices of every pass, the
+swizzled layout, bit-reversed positions, the conjugate symmetry, the crop,
+the fold's points, the scan's chunks -- in float64, so an index fault
+shows as an O(1) error.  Also: the B1b wrapper's
 route by config, and ``SlidingSTFT.step_fused``'s control flow on the B1b
 path (``torch.fft.rfft`` on refresh hops only).
 """
@@ -23,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from openmeters_tpu_torch.ops import corr as tcorr  # noqa: E402
 from openmeters_tpu_torch.ops import sliding_hop as thop  # noqa: E402
 from openmeters_tpu_torch.ops.block_fft import plan_passes, plan_twiddles  # noqa: E402
 from openmeters_tpu_torch.ops import sliding_stft as tstft  # noqa: E402
@@ -286,6 +292,197 @@ def test_b3_transform_plan(n):
     crop, u, v = reassigned_plan(x, n)
     for got, ref in ((crop, a), (u, torch.fft.fft(a)), (v, torch.fft.fft(a * ramp))):
         assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+# -- B4-B6: the correlation search ---------------------------------------------------
+
+CORR_THREADS = 512  # threads a block of csrc/corr_search.cu (THREADS)
+
+
+def ilogb(x: np.ndarray) -> np.ndarray:
+    return np.frexp(x)[1] - 1
+
+
+def corr_search_plan(work: torch.Tensor, tmpl: torch.Tensor, shift: torch.Tensor, nfft: int, out_len: int):
+    """``dots[S, out_len]`` of float64 ``[S, wcap]`` windows and ``[S, L]``
+    templates as ``corr_search.cu`` computes them: the packing with its
+    power-of-two balance, the forward plan over the swizzled layout, the
+    products of each bin quadruple with the integer-reduced anchor phase,
+    their fold into the half-length inverse's input at compacted
+    bit-reversed points, the inverse plan, and ``dots[o]`` from point
+    ``o >> 1``."""
+    s, wl = work.shape
+    n, L = nfft, nfft.bit_length() - 1
+    nw, ntm = min(wl, n), min(tmpl.shape[1], n)
+    pw = work[:, :nw].abs().amax(1).numpy()
+    pt = tmpl[:, :ntm].abs().amax(1).numpy() if ntm else np.zeros(s)
+    e = np.where((pw > 0) & (pt > 0), np.clip(ilogb(pw) - ilogb(np.where(pt > 0, pt, 1.0)), -64, 64), 0)
+    bal = torch.from_numpy(np.exp2(e.astype(np.float64)))[:, None]
+    packed = torch.zeros((s, n), dtype=C128)
+    packed[:, :nw] += work[:, :nw]
+    packed[:, :ntm] += 1j * tmpl[:, :ntm] * bal
+    z = torch.zeros((s, n), dtype=C128)
+    z[:, slot_of(torch.arange(n))] = packed
+    block_fft_dif(z, L, 1, maxb=tcorr.FFT_STAGES)
+
+    def cross(zk, zm):  # W conj(T) of the bin pair (k, n - k)
+        w, t = 0.5 * (zk + zm.conj()), -0.5j * (zk - zm.conj())
+        return w * t.conj()
+
+    def fold(lo, hi, tw):
+        return (lo + hi) + 1j * tw * (lo - hi)
+
+    sh = shift.long()[:, None]
+    sgn = 1.0 - 2.0 * (sh & 1).double()
+    k = torch.arange(1, n // 4 + 1)
+    ra, rb = bit_reverse(k, L), bit_reverse(n - k, L)
+    m = torch.remainder(k[None, :] * sh, n)  # the kernel's (k shift) & (n - 1)
+    ph = torch.exp(1j * math.pi * (2.0 * m.double() / n))
+    pk = cross(z[:, slot_of(ra)], z[:, slot_of(rb)]) * ph
+    pk2 = cross(z[:, slot_of(ra + 1)], z[:, slot_of(rb - 1)]) * ph * sgn
+    # the twist: the forward plan's entries k < n/2 are exp(-2 pi i k / n), in order
+    table = torch.from_numpy(plan_twiddles(L, tcorr.FFT_STAGES, False, np.float64))[: n // 2]
+    full = torch.exp(-2j * math.pi * torch.arange(n // 2, dtype=torch.float64) / n)
+    assert float((torch.complex(table[:, 0], table[:, 1]) - full).abs().max()) <= 1e-15
+    tw = torch.complex(table[k, 0], -table[k, 1])
+    qa, qb = fold(pk, pk2, tw), fold(pk2.conj(), pk.conj(), -tw.conj())
+    q0 = fold(cross(z[:, 0], z[:, 0]), cross(z[:, 1], z[:, 1]) * sgn[:, 0], 1.0)
+    keep = k != n // 4
+    pos = torch.cat([torch.zeros(1, dtype=torch.int64), ra >> 1, (rb >> 1)[keep]])
+    assert torch.equal(torch.sort(pos).values, torch.arange(n // 2))  # each inverse point once
+    q = z.clone()  # in place: every read above happens before the writes
+    q[:, slot_of(pos)] = torch.cat([q0[:, None], qa, qb[:, keep]], dim=1)
+    block_fft_dit(q, L - 1, 1, maxb=tcorr.FFT_STAGES, inverse=True)
+    o = torch.arange(out_len)
+    y = q[:, slot_of(o >> 1)]
+    return torch.where((o & 1).bool(), y.imag, y.real) * torch.from_numpy(np.exp2(-(e + L).astype(np.float64)))[:, None]
+
+
+@pytest.mark.parametrize("threads", [256, 512])
+def test_corr_first_pass_holds_whole_groups(threads):
+    """At n = 8192 ``corr_search.cu`` runs the forward's first pass (4
+    stages, Q = 512, groups g < 512 of the points g + 512 j) on the packed
+    signal in registers: thread t holds point t + it * threads at register
+    it, and takes group g = t + h * threads from registers h + j G (G =
+    512 / threads).  Those are the group's points, and the groups of all
+    threads cover the 8192 points once."""
+    assert plan_passes(13, tcorr.FFT_STAGES, False)[0] == (4, 9)
+    G = 512 // threads
+    t = torch.arange(threads)[:, None, None]
+    h = torch.arange(G)[None, :, None]
+    j = torch.arange(16)[None, None, :]
+    held = t + (h + j * G) * threads  # the point in register h + j G of thread t
+    want = (t + h * threads) + 512 * j  # point j of group t + h threads
+    assert torch.equal(held, want.expand_as(held))
+    assert torch.equal(torch.sort(held.flatten()).values, torch.arange(8192))
+
+
+def corr_sums_plan(work: torch.Tensor, klen, wlen, out_len: int):
+    """``(sx, sxx, wmean)`` as ``corr_search.cu`` computes them: (x, x^2)
+    at points 1..wcap, scanned by ``CORR_THREADS`` serial chunks of an odd
+    length, each chunk offset by the totals of those before it."""
+    s, wl = work.shape
+    ab = torch.zeros((s, wl + 1, 2), dtype=torch.float64)
+    ab[:, 1:, 0], ab[:, 1:, 1] = work, work * work
+    chunk = -(-wl // CORR_THREADS) | 1
+    bounds = [(min(1 + t * chunk, wl + 1), min(1 + t * chunk + chunk, wl + 1)) for t in range(CORR_THREADS)]
+    covered = torch.zeros(wl + 1, dtype=torch.int64)
+    for lo, hi in bounds:
+        covered[lo:hi] += 1
+    assert covered[0] == 0 and bool((covered[1:] == 1).all())  # each point in one chunk
+    total = torch.zeros((s, 2), dtype=torch.float64)
+    for lo, hi in bounds:
+        part = torch.cumsum(ab[:, lo:hi], dim=1)
+        ab[:, lo:hi] = total[:, None] + part
+        if hi > lo:
+            total = total + part[:, -1]
+    kl = klen.long().clamp(0, wl + 1 - out_len)
+    o = torch.arange(out_len)[None, :]
+    hi, lo = ab[torch.arange(s)[:, None], o + kl[:, None]], ab[:, :out_len]
+    w = wlen.long()
+    inside = (w >= 0) & (w <= wl)
+    wmean = torch.where(inside, ab[torch.arange(s), w.clamp(0, wl), 0], 0.0) / w.double().clamp_min(1.0)
+    return hi[..., 0] - lo[..., 0], hi[..., 1] - lo[..., 1], wmean
+
+
+def direct_dots(work: np.ndarray, tmpl: np.ndarray, shift: np.ndarray, nfft: int, offsets: np.ndarray):
+    """``sum_k work[(o + shift + k) mod nfft] tmpl[k]`` at the given
+    offsets, summed term by term in float64."""
+    w = np.zeros((work.shape[0], nfft))
+    w[:, : min(work.shape[1], nfft)] = work[:, :nfft]
+    t = np.zeros((tmpl.shape[0], nfft))
+    t[:, : min(tmpl.shape[1], nfft)] = tmpl[:, :nfft]
+    kk = np.arange(nfft)
+    idx = (offsets[None, :, None] + shift[:, None, None] + kk[None, None, :]) % nfft
+    return np.einsum("sok,sk->so", np.take_along_axis(w[:, None, :], idx, axis=2), t)
+
+
+@pytest.mark.parametrize(
+    "nfft,wcap,tlen,out_len,sums,zero_tmpl",
+    [
+        (16, 12, 7, 16, False, False),  # the smallest n; out_len = nfft
+        (16, 12, 20, 13, True, False),  # a template longer than nfft; out_len = wcap + 1
+        (32, 40, 9, 32, True, False),  # a window longer than nfft (its prefix past the transform)
+        (32, 20, 10, 21, True, True),  # an all-zero template (e = 0)
+        (8192, 7200, 4800, 2401, True, False),  # the main path's shape
+        (8192, 7200, 4800, 7201, True, False),
+        (32768, 28800, 19200, 9601, True, False),  # 192 kHz
+        (32768, 28800, 19200, 28801, True, True),
+    ],
+)
+def test_corr_search_plan(nfft, wcap, tlen, out_len, sums, zero_tmpl):
+    """The correlation search's plan against ``corr_dots_reference`` (f32,
+    within ``DOTS_REL`` of the peak) and a term-by-term float64
+    correlation; with sums, its prefix scan against the plain version
+    (``SUMS_REL``) and a float64 cumsum.  Shifts: the oscilloscope's
+    negative anchor offsets, a large positive and a large negative one."""
+    from openmeters_tpu_torch.utils.parity import DOTS_REL, SUMS_REL
+
+    rng = np.random.default_rng(nfft + wcap + out_len)
+    s = 4
+    work = rng.standard_normal((s, wcap)).astype(np.float32)
+    tmpl = np.zeros((s, tlen), np.float32) if zero_tmpl else rng.standard_normal((s, tlen)).astype(np.float32)
+    tmpl[1] *= 1e-3  # a template 60 dB below its window: e balances them
+    shift = np.array([-(tlen // 3), 0, 2**30 + 12345, -(2**31) + 7], np.int32)
+    klen = rng.integers(0, wcap + 2, s).astype(np.int32)
+    wlen = np.array([0, wcap, wcap // 2 + 1, wcap + 1], np.int32)
+    w64, t64 = torch.from_numpy(work).double(), torch.from_numpy(tmpl).double()
+    got = corr_search_plan(w64, t64, torch.from_numpy(shift), nfft, out_len)
+
+    offsets = np.arange(out_len) if nfft <= 64 else rng.choice(out_len, 40, replace=False)
+    exact = direct_dots(work.astype(np.float64), tmpl.astype(np.float64), shift.astype(np.int64), nfft, offsets)
+    ref = tcorr.corr_dots_reference(torch.from_numpy(work), torch.from_numpy(tmpl), torch.from_numpy(shift),
+                                    nfft, out_len).double()
+    peak = float(ref.abs().max())
+    if zero_tmpl:
+        # the exact dots are 0; the template's spectrum, separated from the
+        # window's, is the rounding of the window's own: held against the
+        # window's energy, the dots' scale were the template the window
+        assert peak == 0.0 and not exact.any()
+        scale = float((w64[:, :nfft] ** 2).sum(1).max())
+        assert float(got.abs().max()) <= TOL * scale
+    else:
+        assert float(np.abs(got.numpy()[:, offsets] - exact).max()) <= TOL * float(np.abs(exact).max())
+        assert float((got - ref).abs().max()) <= DOTS_REL * peak
+    if not sums:
+        return
+    sx, sxx, wmean = corr_sums_plan(w64, torch.from_numpy(klen), torch.from_numpy(wlen), out_len)
+    _, rsx, rsxx, rwmean = tcorr.corr_dots_sums_reference(
+        torch.from_numpy(work), torch.from_numpy(tmpl), torch.from_numpy(klen), torch.from_numpy(wlen),
+        torch.from_numpy(shift), nfft, out_len,
+    )
+    cs = np.concatenate([np.zeros((s, 1)), np.cumsum(work.astype(np.float64), 1)], 1)
+    cs2 = np.concatenate([np.zeros((s, 1)), np.cumsum(work.astype(np.float64) ** 2, 1)], 1)
+    kl = np.clip(klen, 0, wcap + 1 - out_len)
+    o = np.arange(out_len)
+    rows = np.arange(s)[:, None]
+    for ours, plain, exact in (
+        (sx, rsx, cs[rows, o + kl[:, None]] - cs[:, :out_len]),
+        (sxx, rsxx, cs2[rows, o + kl[:, None]] - cs2[:, :out_len]),
+        (wmean, rwmean, np.where(wlen <= wcap, cs[np.arange(s), np.clip(wlen, 0, wcap)], 0.0) / np.maximum(wlen, 1)),
+    ):
+        assert float(np.abs(ours.numpy() - exact).max()) <= TOL * max(float(np.abs(exact).max()), 1.0)
+        assert float((ours - plain.double()).abs().max()) <= SUMS_REL * max(float(plain.abs().max()), 1.0)
 
 
 # -- the B1b wrapper's route and the step's control flow ---------------------------

@@ -18,7 +18,13 @@ from a seed, S=8192 streams or frames:
   Where ``sliding_hop_spectra`` takes the sample deltas the path is the
   kernel alone; in a tree from before that (no ``block_fits``) it is the
   deltas' ``torch.fft.rfft`` and the kernel, whose time alone is printed
-  beside it.
+  beside it;
+- ``b4``: ``corr_dots_sums_ring`` from a ``[8192, 19456]`` ring (template
+  4800, window 7200, nfft 8192, 2401 offsets) (10), and at 192 kHz, S=2048
+  (ring 77312, template 19200, window 28800, nfft 32768, 9601 offsets)
+  (3), each with the dots' largest difference from the plain version over
+  their peak;
+- ``b6``: ``corr_dots`` on the same windows as rows, S=8192 (10), the same.
 
 Each ``--root`` is a directory holding an ``openmeters_tpu_torch`` package
 (default: this checkout), imported in a fresh interpreter, which builds its
@@ -35,7 +41,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SETS = ("b1a", "b2", "b3", "b1b")
+SETS = ("b1a", "b2", "b3", "b1b", "b4", "b6")
 
 CHILD = r"""
 import sys
@@ -128,6 +134,49 @@ def b1b(g):
         del fr, fi, deltas, kr, ki, pr, pi, ref
         torch.cuda.empty_cache()
     return "  ".join(out)
+
+
+def search_inputs(g, s, lanes, kcap):
+    ring = torch.randn((s, lanes), generator=g, device=dev) * 0.3
+    starts = torch.randint(0, lanes // 2, (s,), generator=g, device=dev, dtype=torch.int32)
+    klen = torch.randint(2 * kcap // 5, kcap + 1, (s,), generator=g, device=dev, dtype=torch.int32)
+    off = (kcap - klen) // 2
+    kidx = torch.arange(kcap, device=dev, dtype=torch.int32)
+    kmask = (kidx[None, :] >= off[:, None]) & (kidx[None, :] < (off + klen)[:, None])
+    tmpl = torch.where(kmask, torch.randn((s, kcap), generator=g, device=dev), 0.0)
+    search = (torch.rand((s,), generator=g, device=dev) * (klen // 2).float()).to(torch.int32) + 1
+    return ring, starts, tmpl, klen, search + klen, (-off).contiguous()
+
+
+def dots_gap(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def b4(g):
+    from openmeters_tpu_torch.ops import corr
+
+    out = []
+    for s, lanes, kcap, wcap, nfft, n_out, reps in ((S, 19456, 4800, 7200, 8192, 2401, 10),
+                                                     (2048, 77312, 19200, 28800, 32768, 9601, 3)):
+        args = (*search_inputs(g, s, lanes, kcap), nfft, n_out, wcap)
+        ms = tcuda(lambda: corr.corr_dots_sums_ring(*args), reps)
+        err = dots_gap(corr.corr_dots_sums_ring(*args)[0], corr.corr_dots_sums_ring_reference(*args)[0])
+        out.append(f"B4 S={s} nfft {nfft} {ms:.4f} ms (dots {err:.3e})")
+        del args
+        torch.cuda.empty_cache()
+    return "  ".join(out)
+
+
+def b6(g):
+    from openmeters_tpu_torch.ops import corr
+    from openmeters_tpu_torch.ops.rows import window_rows_reference
+
+    ring, starts, tmpl, _, _, shift = search_inputs(g, S, 19456, 4800)
+    work = window_rows_reference(ring, starts.long(), 7200).contiguous()
+    ms = tcuda(lambda: corr.corr_dots(work, tmpl, shift, 8192, 2401), 10)
+    err = dots_gap(corr.corr_dots(work, tmpl, shift, 8192, 2401),
+                   corr.corr_dots_reference(work, tmpl, shift, 8192, 2401))
+    return f"B6 {ms:.4f} ms (dots {err:.3e})"
 
 
 for name in sys.argv[2:]:

@@ -78,7 +78,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     (18a; the stock spectrum at cadence 4 takes the direct rFFT), then the
     same with ``SpectrumConfig(hop_size=512)`` (18b; cadence 2, B1b on every
     second hop: 100 launches in 200); after each, the profiled device time
-    of each analyzer alone (18b: the spectrum).
+    of each analyzer alone (18b: the spectrum);
+19. ``MeterServer`` on the card against one on the CPU (S=8, the literal
+    ``EngineConfig()`` at 2 channels, ``fetch="full"``, 150 advances of
+    pushed PCM with a glide and NaN samples): a generation reset on two
+    streams at advance 40, an ``apply_settings_async`` (loudness floor,
+    oscilloscope cadence, spectrum averaging) adopted at advance 60, a
+    checkpoint at advance 100 restored by a fresh card server that runs on
+    beside the uninterrupted one; meters, spectra and traces held by the
+    bars of ``utils/parity.py``, the restored server against the
+    uninterrupted one reported (bit-equal or its largest difference);
+20. ``MeterServer`` at S=8192 stereo streams on the card, the C++ ``Feeder``
+    pushing flat out: the literal ``EngineConfig()`` (20a), then the
+    flagship (20b); 40 warm-up advances, 200 timed to the last drained
+    fetch: ``report()``, host ms per advance by stage, the device's busy
+    share from a profile, peak device memory, the transport's host bytes,
+    and the launches of the path's kernels (each must launch).
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -1560,6 +1575,226 @@ def phase18_literal_default(dev, label: str, spectrum=None, expect_b1b: int = 0,
     return result
 
 
+# -- the serving loop ------------------------------------------------------------
+
+
+def serve_audio(s: int, n: int, seed: int) -> np.ndarray:
+    """``[s, n, 2]`` PCM for the serving phases: a tone a stream (40 Hz to
+    4 kHz) with a second on the right, a glide (100 Hz to 4 kHz) in stream
+    1, faint noise, and NaN samples in stream 2 from frame 7000."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48_000.0
+    f = np.exp(rng.uniform(np.log(40.0), np.log(4000.0), (s, 1)))
+    phase = 2 * np.pi * f * t
+    phase[1] = 2 * np.pi * (100.0 * t + 0.5 * (3900.0 / t[-1]) * t * t)
+    amp = rng.uniform(0.05, 0.4, (s, 1))
+    left = amp * np.sin(phase) + 0.01 * rng.standard_normal((s, n))
+    right = 0.5 * left + 0.1 * np.sin(1.7 * phase)
+    audio = np.stack([left, right], -1).astype(np.float32)
+    audio[2, 7000:7003] = np.nan
+    return audio
+
+
+def push_block(servers, audio: np.ndarray, i: int, b: int = 256) -> None:
+    ts = int(i * b / 48_000.0 * 1e9)
+    for srv in servers:
+        for st in range(audio.shape[0]):
+            srv.transport.push_pcm(st, audio[st, i * b : (i + 1) * b], ts)
+
+
+def _max_diff(a, b) -> float:
+    """Largest |a - b| where both are finite; inf if their non-finite
+    entries differ."""
+    a, b = torch.as_tensor(np.asarray(a, np.float64)), torch.as_tensor(np.asarray(b, np.float64))
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        return math.inf
+    both = torch.isfinite(a)
+    return float(torch.where(both, (a - b).abs(), 0.0).max()) if a.numel() else 0.0
+
+
+def phase19_serving_card_vs_cpu(dev, s: int = 8, advances: int = 150) -> None:
+    """``MeterServer`` on the card against one on the CPU: the literal
+    ``EngineConfig()`` at the transport's 2 channels, ``fetch="full"``, the
+    same pushed PCM; a generation reset on streams 3 and 5 at advance 40; at
+    advance 60 an ``apply_settings_async`` (loudness floor, oscilloscope
+    cadence, spectrum averaging) joined and adopted on the next advance; at
+    advance 100 a checkpoint that a fresh card server restores, both then
+    running to the end.  Every advance: ``last_meters()``, and from advance
+    60 on every fourth ``fetch_spectrum()`` and ``fetch_osc_traces()``,
+    card against CPU by the bars of ``utils/parity.py``; the restored server
+    against the uninterrupted one."""
+    from openmeters_tpu_torch.analyzers.spectrum import AveragingMode
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.utils.parity import (
+        check_meters,
+        check_oscilloscope,
+        check_spectrum,
+        oscilloscope_errors,
+        spectrum_errors,
+    )
+
+    base = EngineConfig()
+    cfg = ServeConfig(n_streams=s, channels=2, engine=base, realtime=False, fetch="full", fetch_every=1,
+                      coalesce_blocks=1)
+    new = dataclasses.replace(
+        base,
+        loudness=dataclasses.replace(base.loudness, floor_db=-80.0),
+        oscilloscope=dataclasses.replace(base.oscilloscope, trigger_every=2),
+        spectrum=dataclasses.replace(base.spectrum, averaging=AveragingMode.EXPONENTIAL),
+    )
+    t0 = time.perf_counter()
+    card, cpu = MeterServer(cfg, device=dev), MeterServer(cfg, device="cpu")
+    audio = serve_audio(s, advances * 256, SEED + 19)
+    servers = [card, cpu]
+    restored = None
+    worst: dict = {}
+    spectra = traces = 0
+    ckpt = OUT_DIR / "phase19_carry.npz"
+    OUT_DIR.mkdir(exist_ok=True)
+    restore_diff, restore_at = {}, {}
+    for i in range(advances):
+        if i == 40:
+            for srv in servers:
+                for st in (3, 5):
+                    srv.transport.set_generation(st, 2)
+        if i == 60:
+            for t in [srv.apply_settings_async(new) for srv in servers]:
+                t.join(timeout=300)
+                check(not t.is_alive(), "the background warm-up did not finish")
+            check(all(srv.reconfig_pending for srv in servers), "the swap is not staged")
+        if i == 100:
+            card.checkpoint(str(ckpt))
+            restored = MeterServer(dataclasses.replace(cfg, engine=new), device=dev)
+            restored.restore(str(ckpt))
+            servers = [card, cpu, restored]
+        push_block(servers, audio, i)
+        for srv in servers:
+            srv.advance()
+        if i == 60:
+            check(card.engine.config.loudness.floor_db == -80.0 and not card.reconfig_pending,
+                  "the staged swap was not adopted")
+        err = check_meters(card.last_meters(), cpu.last_meters(), f"phase 19 advance {i}")
+        for name, e in err.items():
+            for k, v in e.items():
+                if isinstance(v, (int, float)):
+                    worst[f"{name}.{k}"] = max(worst.get(f"{name}.{k}", 0.0), v)
+        if i >= 60 and i % 4 == 3:
+            check_spectrum(spectrum_errors(None, None, card.fetch_spectrum(), cpu.fetch_spectrum()),
+                           f"phase 19 spectrum advance {i}")
+            check_oscilloscope(oscilloscope_errors(card.fetch_osc_traces(), cpu.fetch_osc_traces()),
+                               f"phase 19 traces advance {i}")
+            spectra += 1
+            traces += 1
+        if restored is not None:
+            a, b = card.last_meters(), restored.last_meters()
+            check(set(a) == set(b), "the restored server's meters differ in keys")
+            pairs = [(k, a[k], b[k]) for k in a]
+            if i % 4 == 3:
+                for name, x, y in (("spectrum", card.fetch_spectrum(), restored.fetch_spectrum()),
+                                   ("traces", card.fetch_osc_traces(), restored.fetch_osc_traces())):
+                    pairs += [(f"{name}.{f}", getattr(x, f), getattr(y, f)) for f in x._fields]
+            for k, x, y in pairs:
+                d = _max_diff(x, y)
+                restore_diff[k] = max(restore_diff.get(k, 0.0), d)
+                if d:
+                    restore_at.setdefault(k, []).append(i)
+    resets = [srv.stats.resets for srv in (card, cpu)]
+    for srv in (card, cpu, restored):
+        srv.close()
+    check(resets[0] == resets[1] == s + 2, f"resets {resets}, want {s + 2}")
+    check(all(math.isfinite(v) for v in restore_diff.values()), "the restored server's non-finite entries differ")
+    bit_equal = all(v == 0.0 for v in restore_diff.values())
+    log(
+        f"phase 19 MeterServer card vs cpu, literal EngineConfig() at 2 channels, S={s}, {advances} advances "
+        f"in {time.perf_counter() - t0:.1f} s: meters, {spectra} spectra and {traces} trace fetches within the "
+        f"bars; resets {resets[0]}; the async swap adopted at advance 60; worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()) if v) + f" [{card_line()}]"
+    )
+    nonzero = {k: v for k, v in restore_diff.items() if v}
+    log(
+        f"phase 19 restored (checkpoint at advance 100) against uninterrupted, {advances - 100} advances on the "
+        "card: " + ("bit-equal in every fetched meter, spectrum and trace field" if bit_equal else
+                    "not bit-equal; max |d| (at advances): " + ", ".join(
+                        f"{k} {v:.3e} ({restore_at[k][0]}-{restore_at[k][-1]}, {len(restore_at[k])} advances)"
+                        for k, v in sorted(nonzero.items())))
+        + "; a restore re-emits the held spectrum snapshot from the carry, not updated until the next "
+        "spectrum hop, as the JAX package's does"
+    )
+
+
+def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
+    """``MeterServer`` at S=8192 stereo streams on the card, ``fetch="meters"``
+    every sixth hop, with the C++ ``Feeder`` (4 threads) pushing flat out
+    under backpressure: 40 warm-up advances, then 200 timed (the clock
+    stopped after ``close()`` has drained every fetch), counting the
+    launches of ``expect``'s kernels, then a 20-advance profile."""
+    from openmeters_tpu_torch.ingest import Feeder
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.iir import three_band_scan
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.tracing import EngineStats
+
+    s, advances, warmup = FLAGSHIP_S, TIMED_HOPS, 40
+    cfg = ServeConfig(n_streams=s, channels=2, engine=engine_cfg, realtime=False, fetch="meters", fetch_every=6)
+    ring_bytes = s * cfg.channels * int(cfg.ring_seconds * 48_000.0) * 4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = MeterServer(cfg, device=dev)
+    built = time.perf_counter() - t0
+    feeder = Feeder(server.transport, realtime=False, n_threads=4,
+                    max_buffered_frames=int(cfg.ring_seconds * 48_000.0) // 2)
+    try:
+        for _ in range(warmup):
+            server.advance()
+        while server._inflight:  # noqa: SLF001
+            server._drain_one()  # noqa: SLF001
+        torch.cuda.synchronize()
+        server.stats, server.latencies_ms = EngineStats(), []
+        server.host_seconds = dict.fromkeys(server.host_seconds, 0.0)
+        counters = {c.__name__: c for c in (sliding_hop, reassigned_sliding_hop, corr_dots_sums_ring,
+                                            window_rows, three_band_scan)}
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        for _ in range(advances):
+            server.advance()
+        server.close()
+        wall = time.perf_counter() - t1
+        launches = {name: c.launches for name, c in counters.items()}
+        server.stats.wall_seconds = wall
+        report = server.report()
+        host = {k: 1e3 * v / advances for k, v in server.host_seconds.items()}
+        busy_ms, table = profiled(lambda i: server.advance(), 20)
+        server.close()
+    finally:
+        ok, failed = feeder.stop()
+    peak = torch.cuda.max_memory_allocated()
+    hops_per_advance = report["hops"] / advances
+    ms_per_advance = 1e3 * wall / advances
+    (OUT_DIR / f"chip_smoke_profile_{label.replace(' ', '')}.txt").write_text(table)
+    log(
+        f"{label} MeterServer S={s} stereo, fetch meters every 6th hop, Feeder 4 threads flat out: built and "
+        f"warmed in {built:.1f} s; {advances} advances ({report['hops']} hops, {hops_per_advance:.2f} a "
+        f"advance) in {wall:.3f} s: report {json.dumps(report)}; host ms per advance: assemble "
+        f"{host['assemble']:.4f}, H2D enqueue {host['h2d']:.4f}, step enqueue {host['step']:.4f}, drain "
+        f"{host['drain']:.4f} (wall {ms_per_advance:.4f}); device kernel time {busy_ms:.4f} ms per advance "
+        f"over a 20-advance profile: busy {100 * busy_ms / ms_per_advance:.1f} % of the timed advance; peak "
+        f"device memory {peak / 2**30:.3f} GiB; transport ring {ring_bytes / 1e9:.3f} GB of host memory "
+        f"(S x 2 ch x {int(cfg.ring_seconds * 48_000.0)} frames x 4 B); pushes ok {ok}, refused {failed}; "
+        f"launches {launches} [{card_line()}]"
+    )
+    check(report["latency_ms_p50"] is not None, "no fetch drained")
+    check(report["hops"] >= advances, f"{report['hops']} hops in {advances} advances")
+    for name in expect:
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    return {"report": report, "host_ms": host, "busy_ms": busy_ms, "wall_ms": ms_per_advance,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1603,6 +1838,14 @@ def main() -> int:
     stock = phase18_literal_default(dev, "phase 18a")["launches"]
     sliding = phase18_literal_default(dev, "phase 18b", SpectrumConfig(hop_size=512), TIMED_HOPS // 2,
                                       breakdown=("spectrum",))["launches"]
+
+    from openmeters_tpu_torch.engine import EngineConfig
+
+    phase19_serving_card_vs_cpu(dev)
+    phase20_serving_s8192(dev, "phase 20a", EngineConfig(),
+                          ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows", "three_band_scan"))
+    torch.cuda.empty_cache()
+    phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
 
     def entry(name, source, replaces, n, k):
         extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms")

@@ -5,9 +5,10 @@ against; this one imports ``torch``, numpy and the standard library only.
 It mirrors the reference layout (``utils/``, ``ops/``, ``analyzers/``,
 ``engine/``, ``api.py``) so each module's counterpart is easy to find.
 
-Ported so far: BS.1770 loudness, the spectrogram (classic and reassigned)
-and the oscilloscope.  Each TPU kernel on their paths is a hand-written CUDA
-kernel in ``csrc/`` behind a wrapper in ``ops/`` that runs its plain
+All six analyzers, the engine, the batch API, reconfiguration, the carry
+checkpoint and the serving loop (``serve.py`` over the native transport in
+``ingest/``) are ported.  Each TPU kernel on their paths is a hand-written
+CUDA kernel in ``csrc/`` behind a wrapper in ``ops/`` that runs its plain
 PyTorch version for CPU tensors.
 """
 

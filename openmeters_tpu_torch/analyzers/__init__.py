@@ -1,5 +1,5 @@
-"""Meter analyzers: BS.1770 loudness and the classic spectrogram are ported;
-the other analyzers carry their config only."""
+"""Meter analyzers: BS.1770 loudness, the spectrogram, the spectrum, the
+oscilloscope, the stereometer and the waveform, each in its module."""
 
 from openmeters_tpu_torch.analyzers.loudness import (  # noqa: F401
     LoudnessAnalyzer,

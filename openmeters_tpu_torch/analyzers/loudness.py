@@ -22,6 +22,7 @@ from openmeters_tpu_torch.ops.truepeak import TruePeakKernel
 from openmeters_tpu_torch.ops.windowed import BlockWindowedMeans
 from openmeters_tpu_torch.utils.channels import MAX_AUDIO_CHANNELS
 from openmeters_tpu_torch.utils.level import power_to_db
+from openmeters_tpu_torch.utils.migrate import carry_device
 from openmeters_tpu_torch.utils.weighting import k_weighting_sos
 
 LOUDNESS_OFFSET = -0.691
@@ -93,6 +94,24 @@ class LoudnessAnalyzer:
         }
         if self.config.gating:
             out["gate"] = self._gate.init(n_streams, device=device)
+        return out
+
+    def migrate_from(self, old: "LoudnessAnalyzer", carry: dict, n_streams: int):
+        """A floor change keeps the whole window state (the floor gates
+        the dB conversion only); a gating toggle keeps the filter, window
+        and true-peak state and starts the gate afresh.  Any other change
+        starts over (``None``)."""
+        a, b = old.config, self.config
+        if a == b:
+            return carry
+        if dataclasses.replace(a, floor_db=b.floor_db, gating=b.gating) != b:
+            return None
+        out = {k: carry[k] for k in ("kw", "wm", "tp")}
+        if b.gating:
+            out["gate"] = (
+                carry["gate"] if a.gating
+                else self._gate.init(n_streams, device=carry_device(carry))
+            )
         return out
 
     def step(self, carry: dict, block, channel_weights, reset_mask=None):

@@ -37,8 +37,8 @@ The carry tree, dtypes included, is the JAX package's.  The history rings
 are written IN PLACE: ``step`` mutates ``carry["hist"]``, so a carry must
 not be reused after it has been stepped.
 
-Not ported yet: ``migrate_from`` (reconfiguration, ROADMAP A11) and
-``pspecs`` (sharding, A12).
+``migrate_from`` keeps the rings, the trigger lock and the template across
+a change of cadence alone.  Not ported yet: ``pspecs`` (sharding, A12).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ import torch
 from openmeters_tpu_torch.ops import corr
 from openmeters_tpu_torch.ops.rows import window_rows
 from openmeters_tpu_torch.utils.channels import Channel, projection_vector
+from openmeters_tpu_torch.utils.migrate import carry_device, merge_carry
 
 TRACE_COUNT = 2
 
@@ -316,6 +317,20 @@ class OscilloscopeAnalyzer:
                 "frac": zeros((s, TRACE_COUNT)),
             }
         return carry
+
+    def migrate_from(self, old: "OscilloscopeAnalyzer", carry: dict, n_streams: int):
+        """Keep the state across a change of ``trigger_every`` or
+        ``snapshot_every`` alone: the rings, the trigger lock and the
+        template mean the same under either cadence, so a display-rate
+        change does not drop a locked trigger.  State the new cadence adds
+        (the sliding probe, the held snapshot) starts afresh; the probe then
+        re-anchors exactly.  Any other change starts over (``None``)."""
+        a, b = old.config, self.config
+        if a == b:
+            return carry
+        if dataclasses.replace(a, trigger_every=b.trigger_every, snapshot_every=b.snapshot_every) != b:
+            return None
+        return merge_carry(self.init(n_streams, device=carry_device(carry)), carry)
 
     # -- capture metadata per trace ---------------------------------------------
 

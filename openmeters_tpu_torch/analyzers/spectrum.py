@@ -40,6 +40,7 @@ from openmeters_tpu_torch.utils.level import (
     sanitize_negative_db,
     sanitize_sample_rate,
 )
+from openmeters_tpu_torch.utils.migrate import carry_device
 from openmeters_tpu_torch.utils.weighting import a_weight_db
 from openmeters_tpu_torch.utils.windows import (
     WindowKind,
@@ -183,6 +184,34 @@ class SpectrumAnalyzer:
             carry["weighted_db"] = torch.full(shape, floor, dtype=torch.float32, device=device)
         if self.use_sliding:
             carry["sdft"] = self._sliding.init(n_streams * tc, device=device)
+        return carry
+
+    def migrate_from(self, old: "SpectrumAnalyzer", carry: dict, n_streams: int):
+        """Field-level retention across a config change:
+
+        - FFT size, window or block changed: start over (``None``);
+        - rate, hop or sources changed: fresh PCM and level state;
+        - averaging mode or floor changed: the framing and sliding state
+          are kept (the next hop emits a column from the audio already
+          held), the averaging state and held dB start afresh;
+        - a factor within the same mode changed: all is kept.
+        """
+        a, b = old.config, self.config
+        if a == b:
+            return carry
+        if (a.fft_size, a.window, a.block_frames) != (b.fft_size, b.window, b.block_frames):
+            return None
+        fresh = self.init(n_streams, device=carry_device(carry))
+        if (a.sample_rate, a.hop_size, a.source, a.secondary_source) != (
+            b.sample_rate, b.hop_size, b.source, b.secondary_source
+        ):
+            return fresh
+        if a.averaging is not b.averaging or a.floor_db != b.floor_db:
+            out = dict(fresh)
+            out["fb"] = carry["fb"]
+            if "sdft" in carry and "sdft" in fresh:
+                out["sdft"] = carry["sdft"]
+            return out
         return carry
 
     def _to_db(self, power: torch.Tensor):

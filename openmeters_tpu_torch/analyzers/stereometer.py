@@ -8,8 +8,8 @@ moments (cross, L^2, R^2) with ``alpha = 1 - exp(-1 / (rate * window))``,
 clamped to [-1, 1]; the per-sample EMA collapses into one closed-form block
 update, ``m' = (1-a)^B m + a sum_i (1-a)^(B-1-i) v_i``.  Snapshots decimate
 the last ``segment_duration`` seconds to ``target_sample_count`` points,
-band points scaled by 0.8.  Reconfiguration (``migrate_from``) is not
-ported yet.
+band points scaled by 0.8.  ``migrate_from`` keeps the moments and the
+ring across a change of correlation window or band analysis.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from openmeters_tpu_torch.ops.iir import three_band_init, three_band_scan
 from openmeters_tpu_torch.utils.level import flush_denormal
+from openmeters_tpu_torch.utils.migrate import carry_device, merge_carry
 
 BAND_DISPLAY_GAIN = 0.8
 BAND_COUNT = 3
@@ -86,6 +87,29 @@ class StereometerAnalyzer:
         if self.config.analyze_bands:
             carry["tb"] = three_band_init((n_streams, 2), 2, device=device)
         return carry
+
+    def migrate_from(self, old: "StereometerAnalyzer", carry: dict, n_streams: int):
+        """A change of ``correlation_window`` swaps the EMA's alpha and the
+        state goes on; a band-analysis toggle starts the band splitter
+        afresh and keeps the moments and the ring.  A change of rate,
+        block, segment or point count starts over (``None``)."""
+        a, b = old.config, self.config
+        if a == b:
+            return carry
+        if (a.sample_rate, a.block_frames, a.segment_duration, a.target_sample_count) != (
+            b.sample_rate, b.block_frames, b.segment_duration, b.target_sample_count
+        ):
+            return None
+        if dataclasses.replace(
+            a, correlation_window=b.correlation_window, analyze_bands=b.analyze_bands,
+            emit_band_points=b.emit_band_points,
+        ) != b:
+            return None
+        fresh = self.init(n_streams, device=carry_device(carry))
+        out = merge_carry(fresh, carry)
+        if a.analyze_bands != b.analyze_bands and "tb" in out:
+            out["tb"] = fresh["tb"]
+        return out
 
     @functools.lru_cache(maxsize=None)  # noqa: B019 (frozen dataclass)
     def _consts(self, b: int, device: torch.device):

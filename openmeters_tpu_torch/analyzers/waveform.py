@@ -23,8 +23,8 @@ gains [1.0, 0.7, 2.0]) and, with ``track_history``, fast/slow RMS in dB.
   reset zeroes nothing.
 
 The one-hot reductions are products, as in the JAX package, so a
-non-finite sample spreads through them the same way.  Reconfiguration
-(``migrate_from``) is not ported yet.
+non-finite sample spreads through them the same way.  ``migrate_from``
+keeps the column state across a change of scroll speed or band options.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import torch
 
 from openmeters_tpu_torch.ops.iir import three_band_init, three_band_scan
 from openmeters_tpu_torch.utils.level import DB_FLOOR, power_to_db
+from openmeters_tpu_torch.utils.migrate import carry_device, merge_carry
 
 NUM_BANDS = 3
 DERIVED_CHANNELS = 4  # L, R, Mid, Side
@@ -158,6 +159,24 @@ class WaveformAnalyzer:
             if self.config.track_history:
                 carry["power_tot"] = zeros(s, k, lanes)
         return carry
+
+    def migrate_from(self, old: "WaveformAnalyzer", carry: dict, n_streams: int):
+        """A rate or block change starts over (``None``); a toggle of
+        ``analyze_bands`` or ``track_history`` starts the band trackers
+        afresh and keeps the min/max column state; a scroll-speed change
+        keeps it all (the column phase goes on under the new cadence)."""
+        a, b = old.config, self.config
+        if a == b:
+            return carry
+        if (a.sample_rate, a.block_frames) != (b.sample_rate, b.block_frames):
+            return None
+        fresh = self.init(n_streams, device=carry_device(carry))
+        out = merge_carry(fresh, carry)
+        if (a.analyze_bands, a.track_history) != (b.analyze_bands, b.track_history):
+            for k in ("tb", "count", "ring_head", "raw_ring", "color_tot", "power_tot"):
+                if k in fresh:
+                    out[k] = fresh[k]
+        return out
 
     @functools.lru_cache(maxsize=None)  # noqa: B019 (frozen dataclass)
     def _consts(self, device: torch.device):

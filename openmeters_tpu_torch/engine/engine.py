@@ -51,8 +51,15 @@ from openmeters_tpu_torch.utils.channels import (
     channel_weights,
     stereo_matrix,
 )
+from openmeters_tpu_torch.utils.migrate import carry_device
 
 DSP_BATCH_FRAMES_AT_48K = 256
+
+
+def scaled_block_frames(sample_rate: float) -> int:
+    """The engine block at ``sample_rate``: 256 frames at 48 kHz, scaled
+    by rate."""
+    return max(int(round(DSP_BATCH_FRAMES_AT_48K * sample_rate / 48_000.0)), 1)
 
 
 class StreamMeta(NamedTuple):
@@ -83,6 +90,13 @@ class EngineConfig:
     oscilloscope: Any = dataclasses.field(default_factory=OscilloscopeConfig)
     stereometer: Any = dataclasses.field(default_factory=StereometerConfig)
     waveform: Any = dataclasses.field(default_factory=WaveformConfig)
+
+    @staticmethod
+    def at_rate(sample_rate: float, **kw) -> "EngineConfig":
+        """A config for one sample rate, its block scaled by rate
+        (:func:`scaled_block_frames`).  Streams of different rates run in
+        engines of their own."""
+        return EngineConfig(sample_rate=sample_rate, block_frames=scaled_block_frames(sample_rate), **kw)
 
     def resolve(self) -> "EngineConfig":
         """Propagate engine-level rate/block into analyzer configs."""
@@ -242,6 +256,27 @@ class MeterEngine:
     def extract_oscilloscope(self, carry: dict):
         """The oscilloscope's capture windows from the live carry."""
         return self.analyzers["oscilloscope"].extract(carry["oscilloscope"])
+
+    def migrate_carry(self, old_engine: "MeterEngine", carry: dict, n_streams: int) -> dict:
+        """The carry to go on with after a config change, analyzer by
+        analyzer: an unchanged analyzer keeps its carry; a changed one with
+        a ``migrate_from`` keeps what that method keeps (the spectrum its
+        framing and sliding state across an averaging or floor change, the
+        oscilloscope its trigger lock across a cadence change); the rest,
+        and a ``migrate_from`` that returns ``None``, start afresh.  The
+        carry stays on its device, and fresh parts are made there."""
+        old = old_engine.analyzers
+        device = carry_device(carry)
+        out = {}
+        for name, analyzer in self.analyzers.items():
+            migrated = None
+            if name in old and name in carry:
+                if old[name].config == analyzer.config:
+                    migrated = carry[name]
+                elif hasattr(analyzer, "migrate_from"):
+                    migrated = analyzer.migrate_from(old[name], carry[name], n_streams)
+            out[name] = migrated if migrated is not None else analyzer.init(n_streams, device=device)
+        return out
 
 
 def _stack_snaps(snaps: list):

@@ -308,14 +308,24 @@ class SlidingReassigned:
                 )
             )
 
+        args = (st, dx, dh, upd, rot_r, rot_i, t["normq"], t["freqb"])
+        on_cpu = hx.device.type == "cpu"
+        if on_cpu:
+            # the CPU runs the plain hop in float64, its states stored in
+            # f32 as the card's are: in f32 its sums drift from the exact
+            # reassignment further than the kernel's (ROADMAP.md, section C)
+            args = (tuple(x.double() for x in st), *(x.double() for x in args[1:]))
         new8, freq, time, power = reassigned_sliding_hop(
-            ready, st, dx, dh, upd, rot_r, rot_i, t["normq"], t["freqb"],
+            ready, *args,
             n=self.n, zpf=self.zpf, coeffs=self.coeffs(),
             inv_2pi=self.sample_rate / (2.0 * np.pi),
             inv_hop=1.0 / hop,
             latency_hops=self.center / hop,
             tiles=t["tiles"],
         )
+        if on_cpu:
+            new8 = tuple(x.float() for x in new8)
+            freq, time, power = freq.float(), time.float(), power.float()
         anchored = (state["anchored"] or refresh) and warm
         new_state = dict(zip(STATE_KEYS, new8))
         new_state.update(hx=hx, count=count + 1, anchored=anchored, hx_avail=hx_avail)

@@ -71,6 +71,8 @@ SURROUND = (
     _P.SIDE_RIGHT,
 )
 
+_AUX = (_P.AUX0, _P.AUX1, _P.AUX2, _P.AUX3, _P.AUX4, _P.AUX5, _P.AUX6, _P.AUX7)
+
 
 def channel_fallback(channels: int) -> list[ChannelPosition]:
     """Default layout: 1ch mono; 4ch quad (rears in slots 2-3); 5ch
@@ -84,6 +86,30 @@ def channel_fallback(channels: int) -> list[ChannelPosition]:
         positions[2:4] = [_P.REAR_LEFT, _P.REAR_RIGHT]
     elif channels == 5:
         positions[3:5] = [_P.REAR_LEFT, _P.REAR_RIGHT]
+    return positions
+
+
+def normalize_positions(channels: int, positions: list[ChannelPosition]) -> list[ChannelPosition]:
+    """Duplicates past their first occurrence become UNKNOWN; then every
+    UNKNOWN slot takes the first unused of: its fallback slot, the fallback
+    layout, the SURROUND layout, AUX0..7."""
+    channels = min(channels, MAX_AUDIO_CHANNELS)
+    positions = list(positions[:MAX_AUDIO_CHANNELS])
+    positions += [_P.UNKNOWN] * (MAX_AUDIO_CHANNELS - len(positions))
+    for i in range(channels, MAX_AUDIO_CHANNELS):
+        positions[i] = _P.UNKNOWN
+    for i in range(channels):
+        if positions[i] == _P.UNKNOWN or positions[i] in positions[:i]:
+            positions[i] = _P.UNKNOWN
+
+    fallback = channel_fallback(channels)
+    for i in range(channels):
+        if positions[i] != _P.UNKNOWN:
+            continue
+        for cand in (fallback[i], *fallback, *SURROUND, *_AUX):
+            if cand != _P.UNKNOWN and cand not in positions[:channels]:
+                positions[i] = cand
+                break
     return positions
 
 

@@ -17,9 +17,12 @@ products are bf16x3 splits rather than f32 FMAs.  Their states part by
 ~1e-7 of the row's largest bin, and the ramp-weighted spectrum V (up to n/2
 times U) carries that into the time correction over the bin's own |B|, so
 the time error grows as the bin's amplitude ratio to the peak.  The port
-against the JAX package on the CPU reaches 8.2e-3 hop within 50 dB and
-1.5e-2 hop within 60 dB; the time bar there is 0.015 hop within 50 dB and
-0.03 hop from 50 to 60 dB.
+against the JAX package on the CPU reached 8.2e-3 hop within 50 dB and
+1.5e-2 hop within 60 dB while the port's CPU hop ran in f32; the time bar
+there is 0.015 hop within 50 dB and 0.03 hop from 50 to 60 dB.  The card
+against that f32 CPU hop crossed it (1.29 of the bar, a served tone over 57
+hops); the CPU hop now runs in float64 (1.9e-3 and 4.3e-3 against the JAX
+package, 0.76 of the bar card against CPU on the same run).
 
 Oscilloscope.  The correlation search (``ops/corr.py``): dots within 5e-6
 of the row set's largest |dots|, sx, sxx and wmean within 1e-5 of
@@ -452,5 +455,70 @@ def check_snapshots(ours: dict, ref: dict, where: str = "") -> dict:
         else:
             err = snapshot_errors(o, r)
             check_snapshot(err, here)
+        out[name] = err
+    return out
+
+
+# -- a server's fetched meters ----------------------------------------------------
+
+# the snapshot fields that are bool before the fetch packs them into f32
+_BOOL_FIELDS = {"valid", "point_valid", "locked", "trace_valid", "updated", "points_valid", "col_valid"}
+
+
+def _snapshot_classes() -> dict:
+    from openmeters_tpu_torch.analyzers.loudness import LoudnessSnapshot
+    from openmeters_tpu_torch.analyzers.oscilloscope import OscilloscopeSnapshot
+    from openmeters_tpu_torch.analyzers.spectrogram import ClassicColumns, ReassignedColumns
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumSnapshot
+    from openmeters_tpu_torch.analyzers.stereometer import StereometerSnapshot
+    from openmeters_tpu_torch.analyzers.waveform import WaveformSnapshot
+
+    return {
+        "loudness": (LoudnessSnapshot,), "spectrogram": (ClassicColumns, ReassignedColumns),
+        "spectrum": (SpectrumSnapshot,), "oscilloscope": (OscilloscopeSnapshot,),
+        "stereometer": (StereometerSnapshot,), "waveform": (WaveformSnapshot,),
+    }
+
+
+def meters_to_snapshots(meters: dict) -> dict:
+    """A server's ``last_meters()`` (``{"['loudness'].momentary_lufs":
+    array}``) as ``{analyzer: snapshot}``, the bool fields bool again.  An
+    analyzer whose every field was fetched comes back as its snapshot class;
+    one with some fields only (``fetch="meters"``) as a named tuple of
+    those."""
+    import collections
+
+    groups: dict = {}
+    for key, value in meters.items():
+        name, field = key[2:].split("']", 1)
+        value = value if isinstance(value, torch.Tensor) else torch.tensor(value)
+        field = field.lstrip(".")
+        groups.setdefault(name, {})[field] = value.bool() if field in _BOOL_FIELDS else value
+    classes = _snapshot_classes()
+    out = {}
+    for name, fields in groups.items():
+        cls = next((c for c in classes.get(name, ()) if set(c._fields) == set(fields)), None)
+        if cls is None:
+            cls = collections.namedtuple(f"{name}_meters", list(fields))
+        out[name] = cls(**fields)
+    return out
+
+
+def check_meters(ours: dict, ref: dict, where: str = "") -> dict:
+    """Hold one server's fetched meters (``last_meters()``) to another's:
+    the same keys; each analyzer fetched whole by its bars in
+    :func:`check_snapshots`; the fields of one fetched in part (the meters
+    of ``fetch="meters"``) by :func:`check_snapshot`'s (a bar where the
+    field has one, else equal).  Raises ``AssertionError``; returns the
+    errors by analyzer."""
+    if set(ours) != set(ref):
+        raise AssertionError(f"{where}: meter keys differ: {sorted(set(ours) ^ set(ref))}")
+    so, sr = meters_to_snapshots(ours), meters_to_snapshots(ref)
+    classes = {c for group in _snapshot_classes().values() for c in group}
+    whole = {name for name, snap in sr.items() if type(snap) in classes}
+    out = check_snapshots({n: so[n] for n in whole}, {n: sr[n] for n in whole}, where)
+    for name in set(sr) - whole:
+        err = snapshot_errors(so[name], sr[name])
+        check_snapshot(err, f"{where} {name}")
         out[name] = err
     return out

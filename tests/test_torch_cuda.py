@@ -596,3 +596,41 @@ def test_stereometer_waveform_card_matches_cpu(card, which):
     _run_card_and_cpu(an, _stereo_audio(3, hops * 256, seed=17, bad=True), 256,
                       {30: torch.tensor([False, True, False])}, compare)
     assert iir.three_band_scan.launches == before + hops
+
+
+@pytest.mark.cuda
+def test_meter_server_card_matches_cpu(card):
+    """``MeterServer`` on the card against one on the CPU, S=4, 30 advances
+    of the same pushed PCM (a generation reset on stream 1 at advance 12):
+    every advance's fetched meters and the display-rate spectrum, by the
+    bars of ``utils/parity.py``."""
+    from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.utils.parity import check_meters, check_spectrum, spectrum_errors
+
+    engine = EngineConfig(
+        channels=2, spectrogram=SpectrogramConfig(fft_size=256, hop_size=64, use_reassignment=False),
+        spectrum=SpectrumConfig(fft_size=1024, hop_size=1024), oscilloscope=None, stereometer=None,
+        waveform=None,
+    )
+    cfg = ServeConfig(n_streams=4, engine=engine, realtime=False, fetch="full", fetch_every=1,
+                      coalesce_blocks=1)
+    servers = [MeterServer(cfg, device=card), MeterServer(cfg, device="cpu")]
+    audio = _stereo_audio(4, 30 * 256, seed=19)
+    try:
+        for i in range(30):
+            for srv in servers:
+                if i == 12:
+                    srv.transport.set_generation(1, 2)
+                for st in range(4):
+                    srv.transport.push_pcm(st, audio[st, i * 256 : (i + 1) * 256], int(i * 256 / 48e3 * 1e9))
+                srv.advance()
+            on_card, on_cpu = (srv.last_meters() for srv in servers)
+            check_meters(on_card, on_cpu, f"advance {i}")
+        check_spectrum(spectrum_errors(None, None, *(srv.fetch_spectrum() for srv in servers)), "spectrum")
+        assert servers[0].stats.resets == servers[1].stats.resets == 5
+    finally:
+        for srv in servers:
+            srv.close()

@@ -94,6 +94,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
     fetch: ``report()``, host ms per advance by stage, the device's busy
     share from a profile, peak device memory, the transport's host bytes,
     and the launches of the path's kernels (each must launch).
+21. the CLI on the card, in this process through
+    ``openmeters_tpu_torch.__main__.main``: (a) ``serve --socket PATH
+    --rates 44100,48000 --streams 4096`` with the flagship in a settings
+    file it watches, 128 producer links in real time (96 at 48 kHz, 32 at
+    44.1 kHz: a helper subprocess of ``ProducerClient``s and four
+    ``python -m openmeters_tpu_torch.ingest.producer`` processes, one with
+    a timeline gap, one with a format switch) and two steady -6 dBFS
+    997 Hz links under backpressure, the file rewritten halfway to turn
+    reassignment on: every link in the report, B1a launched in both
+    buckets, B2 after the swap, and each steady link's served momentary
+    LUFS (the newest drain whose window held its tone whole) within 0.01
+    LU of the same tone analyzed on the CPU at its rate; the report, host
+    ms a hop by stage, the device's busy share over the serve loop and
+    peak memory are printed; (b) ``analyze`` of a 3 s stereo WAV under
+    ``EngineConfig()`` with the spectrum at hop 512, on the card against
+    ``--device cpu`` within ``check_analyze``'s bars, B1b, B2, B4, B7 and
+    ``three_band`` each launched; (c) ``selftest``, ``precompile`` and
+    ``settings --init``.
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -115,8 +133,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1795,6 +1815,456 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
             "launches": launches}
 
 
+# -- the CLI -----------------------------------------------------------------------
+
+CLI_DIR = OUT_DIR / "phase21"  # relative: a unix socket path holds at most 107 bytes
+STEADY_AMP, STEADY_HZ = 0.5, 997.0  # -6.02 dBFS
+
+
+def _tone_chunk(sent: int, rate: float, freq: float, amp: float) -> tuple[np.ndarray, int]:
+    """The next 1024-frame push at 48 kHz (its wall time at other rates)
+    of a phase-continuous stereo tone, and its timestamp."""
+    n = np.arange(sent, sent + int(round(1024 * rate / 48_000.0)))
+    x = (amp * np.sin(2 * np.pi * freq * (n / rate))).astype(np.float32)
+    return np.stack([x, x], -1), int(sent / rate * 1e9)
+
+
+def producer_helper(sock: str, n48: int, n44: int, max_seconds: float) -> int:
+    """Run in a subprocess of phase 21a: ``n48`` + ``n44`` ``ProducerClient``
+    links, each a distinct stereo tone in real time (a push of 1024 frames
+    at 48 kHz, one push ahead of the wall clock), until the server closes
+    the links or ``max_seconds`` pass.  Prints one JSON line: the links'
+    slots."""
+    from openmeters_tpu_torch.ingest.runtime import ProducerClient
+
+    specs = [(f"h48-{k:03d}", 48_000.0) for k in range(n48)] + [(f"h44-{k:03d}", 44_100.0) for k in range(n44)]
+    clients = []
+    for name, rate in specs:
+        c = ProducerClient(sock, {"app_name": name, "channels": 2, "sample_rate": rate}, timeout=60.0)
+        if c.connect() is None:
+            raise RuntimeError(f"{name} refused: {c.refusal}")
+        clients.append(c)
+    print(json.dumps({name: [rate, c.slot] for (name, rate), c in zip(specs, clients)}), flush=True)
+    sent = [0] * len(clients)
+    live = [True] * len(clients)
+    t0 = time.monotonic()
+    while any(live) and time.monotonic() - t0 < max_seconds:
+        ahead = time.monotonic() - t0 + 1024 / 48_000.0
+        for k, c in enumerate(clients):
+            while live[k] and sent[k] < ahead * c.sample_rate:
+                pcm, ts = _tone_chunk(sent[k], c.sample_rate, 60.0 * 2 ** (k / 20), 0.25)
+                try:
+                    c.send_pcm(pcm, ts)
+                except OSError:  # the server closed the link
+                    live[k] = False
+                sent[k] += len(pcm)
+        time.sleep(0.002)
+    for c in clients:
+        c.close()
+    return 0
+
+
+def _steady_producer(sock: str, name: str, rate: float, transport, halt, slots: dict) -> None:
+    """Phase 21a's steady -6 dBFS 997 Hz link: it keeps 0.25 s of audio
+    buffered in its slot of the bucket's transport (backpressure, as
+    phase 20's feeder pushes), so its stream neither runs dry nor
+    overflows however fast the server drains, and its meters hold a whole
+    window of the tone."""
+    from openmeters_tpu_torch.ingest.runtime import ProducerClient
+
+    c = ProducerClient(sock, {"app_name": name, "channels": 2, "sample_rate": rate}, timeout=60.0)
+    slots[name] = [rate, c.connect()]
+    sent = 0
+    try:
+        while not halt.wait(0.05):
+            while transport.buffered_frames(c.slot) < 0.25 * rate:
+                pcm, ts = _tone_chunk(sent, rate, STEADY_HZ, STEADY_AMP)
+                c.send_pcm(pcm, ts)
+                sent += len(pcm)
+    except OSError:
+        pass  # the server closed the link
+    finally:
+        c.close()
+
+
+class _Phase21Server:
+    """Observes the ``MultiRateMeterServer`` the CLI builds in phase 21a:
+    per bucket, the reset and underrun flags of every assembled hop, every
+    drained fetch's momentary LUFS, and the kernel launches of advances
+    that no background warm-up overlapped; the serve loop's start and end."""
+
+    def __init__(self, counters: dict):
+        self.counters = counters
+        self.server = None
+        self.flags: dict = {}  # rate -> [packed reset|underrun bits a hop]
+        self.drains: dict = {}  # rate -> [(hops assembled, momentary LUFS [S])]
+        self.quiet: dict = {}  # rate -> {kernel: launches in advances with no warm-up beside them}
+        self.staged: dict = {}  # rate -> serve-loop seconds when a reconfiguration was first pending
+        self.adopted: dict = {}  # rate -> serve-loop seconds when the reassigned engine first served
+        self.t0 = self.t_end = None  # the serve loop's start and end (perf_counter)
+        self.wall = (None, None)  # the same on the wall clock (time.time)
+
+    def install(self, serve_mod) -> None:
+        base, probe = serve_mod.MultiRateMeterServer, self
+
+        class Observed(base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                probe.server = self
+                probe.t0 = time.perf_counter()
+                for rate, s in self.servers.items():
+                    probe._observe(rate, s)
+
+            def run(self, duration_s):
+                probe.t0, start = time.perf_counter(), time.time()
+                try:
+                    return super().run(duration_s)
+                finally:
+                    probe.t_end, probe.wall = time.perf_counter(), (start, time.time())
+
+        serve_mod.MultiRateMeterServer = Observed
+        self._restore = (serve_mod, base)
+
+    def uninstall(self) -> None:
+        serve_mod, base = self._restore
+        serve_mod.MultiRateMeterServer = base
+
+    def _observe(self, rate, s) -> None:
+        flags, drains = self.flags.setdefault(rate, []), self.drains.setdefault(rate, [])
+        quiet = self.quiet.setdefault(rate, dict.fromkeys(self.counters, 0))
+        assemble, advance = s.transport.assemble, s.advance
+
+        def observed_assemble(*args, **kw):
+            out = assemble(*args, **kw)
+            flags.append(np.packbits((out[1] != 0) | (out[2] != 0)))
+            return out
+
+        def recorder(server):
+            m = server.last_meters()
+            drains.append((len(flags), m["['loudness'].momentary_lufs"].copy()))
+
+        def observed_advance():
+            calm = not any(b.reconfig_pending for b in self.server.servers.values())
+            before = {n: c.launches for n, c in self.counters.items()}
+            advance()
+            now = round(time.perf_counter() - self.t0, 3)
+            if s.reconfig_pending:
+                self.staged.setdefault(str(rate), now)
+            if s.engine.config.spectrogram.use_reassignment:
+                self.adopted.setdefault(str(rate), now)
+            if calm and not any(b.reconfig_pending for b in self.server.servers.values()):
+                for n, c in self.counters.items():
+                    quiet[n] += c.launches - before[n]
+
+        s.transport.assemble = observed_assemble
+        s.on_drain = recorder  # the CLI's settings watcher runs after it
+        s.advance = observed_advance
+
+    def clean_reading(self, rate: float, slot: int, hops: int):
+        """The newest drained momentary LUFS of ``slot`` whose last ``hops``
+        assembled hops carried whole PCM blocks (no underrun, no reset),
+        and how many drains were older; ``None`` if no drain had such a
+        window."""
+        flags = self.flags[rate]
+        for k in range(len(self.drains[rate]) - 1, -1, -1):
+            h, lufs = self.drains[rate][k]
+            if h >= hops + 1 and not any(np.unpackbits(f)[slot] for f in flags[h - hops : h]):
+                return float(lufs[slot]), k, len(self.drains[rate])
+        return None
+
+
+def _samples_between(csv: str, start: float, end: float) -> list[float]:
+    """``nvidia-smi --query-gpu=timestamp,utilization.gpu`` lines whose
+    timestamp (the host's local time) falls within ``[start, end]``
+    (``time.time()`` seconds): their utilization values."""
+    import datetime
+
+    out = []
+    for line in csv.splitlines():
+        stamp, _, value = line.rpartition(",")
+        try:
+            t = datetime.datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f").timestamp()
+            util = float(value)
+        except ValueError:
+            continue
+        if start <= t <= end:
+            out.append(util)
+    return out
+
+
+def _message_counts(links: dict) -> dict:
+    """PCM messages a link: least, median, most, by kind of producer."""
+    out = {}
+    for kind in ("h48", "h44", "sub", "steady"):
+        n = sorted(v["pcm_messages"] for k, v in links.items() if k.startswith(f"app.name:{kind}"))
+        if n:
+            out[kind] = [n[0], n[len(n) // 2], n[-1]]
+    return out
+
+
+def _cli(argv: list[str]) -> tuple[int, str]:
+    """``python -m openmeters_tpu_torch`` in this process: its exit code
+    and standard output."""
+    import contextlib
+    import io
+
+    from openmeters_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue()
+
+
+def _wait_for(cond, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.02)
+    return True
+
+
+def phase21a_serve_socket(dev, counters: dict, streams: int = 4096, duration: float = 24.0) -> dict:
+    """``serve --socket --rates 44100,48000 --streams 4096`` with the
+    flagship in a watched settings file: 128 producer links in real time
+    (a helper subprocess of ``ProducerClient``s and four ``ingest.producer``
+    processes, one with a timeline gap, one with a format switch) and two
+    steady ones under backpressure; the file rewritten to turn
+    reassignment on halfway through."""
+    import dataclasses
+    import shutil
+
+    from openmeters_tpu_torch import serve as serve_mod
+    from openmeters_tpu_torch.analyzers.loudness import LoudnessConfig
+    from openmeters_tpu_torch.api import analyze
+    from openmeters_tpu_torch.engine import EngineConfig, scaled_block_frames
+    from openmeters_tpu_torch.persistence import encode_settings, write_json_atomic
+    from openmeters_tpu_torch.utils.parity import LOUDNESS_LU
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    sock, settings = str(CLI_DIR / "serve.sock"), str(CLI_DIR / "settings.json")
+    flagship = flagship_config()
+    write_json_atomic(settings, encode_settings(flagship))
+    edited = str(CLI_DIR / "settings.next.json")
+    reassigned = dataclasses.replace(flagship, spectrogram=dataclasses.replace(flagship.spectrogram,
+                                                                              use_reassignment=True))
+    write_json_atomic(edited, encode_settings(reassigned))
+    rewrite_at = duration / 2
+    probe = _Phase21Server(counters)
+    n48, n44 = 93, 31  # with the four producer processes: 96 links at 48 kHz, 32 at 44.1 kHz
+    subs = [("sub-gap", 48_000.0, ["--gap-at", "3"]), ("sub-fmt", 48_000.0, ["--format-switch-at", "5"]),
+            ("sub-48", 48_000.0, []), ("sub-44", 44_100.0, [])]
+    procs: dict = {}
+    peaks = {}
+    halt, steady_slots, steady_threads = threading.Event(), {}, []
+
+    def spawn():
+        if not _wait_for(lambda: os.path.exists(sock) and probe.server is not None, 300.0):
+            return
+        procs["helper"] = subprocess.Popen(
+            [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.producer_helper("
+             f"{sock!r}, {n48}, {n44}, {duration + 60.0}))"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, (name, rate, extra) in enumerate(subs):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "openmeters_tpu_torch.ingest.producer", "--socket", sock, "--app-name",
+                 name, "--rate", str(rate), "--freq", str(440.0 + 110.0 * k), "--amp", "0.3", "--seconds", "8",
+                 "--realtime", *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, rate in (("steady48", 48_000.0), ("steady44", 44_100.0)):
+            t = threading.Thread(target=_steady_producer, daemon=True,
+                                 args=(sock, name, rate, probe.server.servers[rate].transport, halt, steady_slots))
+            t.start()
+            steady_threads.append(t)
+        # halfway through the serve loop, turn reassignment on: one rename,
+        # as an editor saves (this thread waits on the interpreter lock
+        # behind the runtime's threads, so it prepared the file before)
+        time.sleep(max(rewrite_at - (time.perf_counter() - probe.t0), 0.0))
+        peaks["before_swap"] = torch.cuda.max_memory_allocated()
+        peaks["rewrite_s"] = time.perf_counter() - probe.t0
+        os.replace(edited, settings)
+
+    starter = threading.Thread(target=spawn, daemon=True)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    probe.install(serve_mod)
+    # the device's busy share from nvidia-smi (the share of each sample
+    # period in which a kernel ran): a profiler in this process doubles the
+    # host's time to launch a step here, and its start waits seconds on the
+    # interpreter lock behind the runtime's threads
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+                            "-lms", "500"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    starter.start()
+    t0 = time.perf_counter()
+    try:
+        rc, out = _cli(["serve", "--socket", sock, "--rates", "44100,48000", "--streams", str(streams),
+                        "--config", "serve", "--fetch", "meters", "--settings", settings, "--watch-settings",
+                        "--duration", str(duration)])
+    finally:
+        probe.uninstall()
+        smi.terminate()
+        samples = smi.communicate(timeout=30)[0]
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        starter.join(timeout=60)
+        halt.set()
+        for t in steady_threads:
+            t.join(timeout=30)
+        results = {}
+        for name, p in procs.items():
+            try:
+                results[name] = (p.wait(timeout=90), *p.communicate(timeout=30))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                results[name] = (p.wait(timeout=30), "", "killed")
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"phase 21a: serve exited {rc}")
+    report = json.loads(out.strip().splitlines()[-1])
+    m = probe.server
+    slots = json.loads(results["helper"][1].strip().splitlines()[-1]) if results.get("helper", (1,))[0] == 0 else {}
+    slots.update(steady_slots)
+    flagged = {}  # the steady slots' hops with an underrun or a reset
+    for rate, flags in probe.flags.items():
+        name = "steady48" if rate == 48_000.0 else "steady44"
+        if name in slots:
+            flagged[name] = [int(np.unpackbits(f)[slots[name][1]]) for f in flags]
+    steady = {}
+    for name, (rate, slot) in ((n, slots[n]) for n in ("steady48", "steady44") if n in slots):
+        window = math.ceil(0.4 * rate / scaled_block_frames(rate)) + 2
+        got = probe.clean_reading(rate, slot, window)
+        t = np.arange(int(2.0 * rate)) / rate
+        x = (STEADY_AMP * np.sin(2 * np.pi * STEADY_HZ * t)).astype(np.float32)
+        ref_cfg = EngineConfig.at_rate(rate, channels=2, loudness=LoudnessConfig(), spectrogram=None,
+                                       spectrum=None, oscilloscope=None, stereometer=None, waveform=None)
+        ref = float(analyze(np.stack([x, x], -1), rate, ref_cfg, device="cpu")[-1]["loudness"].momentary_lufs[0])
+        steady[name] = {"rate": rate, "slot": slot, "cpu": ref, "window_hops": window,
+                        "flagged_hops": f"{sum(flagged[name])} of {len(flagged[name])}"}
+        if got is not None:
+            steady[name].update(served=got[0], drain=got[1], drains=got[2])
+    stages = {str(rate): {k: round(1e3 * v / max(s.stats.hops, 1), 4) for k, v in s.host_seconds.items()}
+              for rate, s in m.servers.items()}
+    loop_s = probe.t_end - probe.t0
+    in_loop = _samples_between(samples, *probe.wall)
+    busy = sum(in_loop) / len(in_loop) if in_loop else None
+    rep = {str(r): {k: report[str(r)][k] for k in ("streams", "hops", "resets", "underruns", "realtime_streams",
+                                                    "latency_ms_p50", "latency_ms_p95", "latency_ms_max")}
+           for r in m.servers}
+    log(
+        f"phase 21a serve --socket, {streams} slots a bucket at 44.1 and 48 kHz, {n48 + n44 + len(subs)} producer "
+        f"links in real time ({n48 + 3} at 48 kHz, {n44 + 1} at 44.1 kHz) and 2 steady ones under backpressure, "
+        f"--duration {duration}: rc {rc}, {wall:.1f} s in all; "
+        f"report {json.dumps(rep)}; host ms a hop by stage {json.dumps(stages)}; device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} %'} (nvidia-smi utilization.gpu, mean of the "
+        f"{len(in_loop)} samples, polled every 500 ms, within the {loop_s:.2f} s serve loop: {in_loop}); link messages "
+        f"{json.dumps(_message_counts(report['links']))}; peak device memory "
+        f"{peaks.get('before_swap', 0) / 2**30:.3f} GiB before the settings rewrite, {peak / 2**30:.3f} GiB with "
+        f"the swap; settings rewritten at {peaks.get('rewrite_s', 0):.2f} s, swap staged / adopted at "
+        f"{json.dumps(probe.staged)} / {json.dumps(probe.adopted)} s of the serve loop; launches {launches}, in "
+        f"advances with no warm-up beside them {json.dumps({str(k): v for k, v in probe.quiet.items()})}; "
+        f"steady tone {json.dumps(steady)} [{card_line()}]"
+    )
+    for name, (code, _, err) in results.items():
+        check(code == 0, f"phase 21a: producer {name} exited {code}: {err[-2000:]}")
+    want = set(f"app.name:{n}" for n in list(slots) + [s[0] for s in subs])
+    check(len(want) == n48 + n44 + len(subs) + 2, "phase 21a: producer names collide")
+    missing = want - set(report["links"])
+    check(not missing, f"phase 21a: links missing from the report: {sorted(missing)[:8]}")
+    for rate, s in m.servers.items():
+        check(s.engine.config.spectrogram.use_reassignment, f"phase 21a: the {rate} Hz bucket never adopted the swap")
+        check(probe.quiet[rate]["sliding_hop"] > 0, f"phase 21a: B1a never launched in the {rate} Hz bucket")
+        # 2048/64 slides at 48 kHz (B2); 235-frame blocks do not align the
+        # sliding ring's writes, so at 44.1 kHz it runs a column at a time (B3)
+        sg = s.engine.analyzers["spectrogram"]
+        kernel = "reassigned_sliding_hop" if sg.use_sliding_reassigned else "reassigned_columns"
+        check(sg.use_sliding_reassigned or sg.use_reassigned_kernel, f"phase 21a: {rate} Hz reassigns on no kernel")
+        check(probe.quiet[rate][kernel] > 0, f"phase 21a: {kernel} never launched in the {rate} Hz bucket after the swap")
+    for name, st in steady.items():
+        check("served" in st, f"phase 21a: {name} never had {st['window_hops']} clean hops before a drain")
+        check(abs(st["served"] - st["cpu"]) <= LOUDNESS_LU,
+              f"phase 21a: {name} served momentary {st['served']} LUFS against {st['cpu']} analyzed on the CPU")
+    return {"report": rep, "stages": stages, "busy": busy, "peak": peak, "steady": steady}
+
+
+def phase21b_analyze(dev, counters: dict) -> None:
+    """``analyze`` of a 3 s stereo WAV under ``EngineConfig()`` with the
+    spectrum at hop 512 (a settings file), on the card and with
+    ``--device cpu``: every field within its bar."""
+    import dataclasses
+
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.io.wav import write_wav
+    from openmeters_tpu_torch.persistence import encode_settings, write_json_atomic
+    from openmeters_tpu_torch.utils.parity import check_analyze
+
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(3.0 * 48_000)) / 48_000.0
+    left = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * np.sin(2 * np.pi * 1700.0 * t)
+    left += 0.01 * rng.standard_normal(t.shape)
+    right = 0.6 * left + 0.05 * np.sin(2 * np.pi * 3100.0 * t)
+    wav, settings = str(CLI_DIR / "input.wav"), str(CLI_DIR / "analyze.json")
+    write_wav(wav, np.stack([left, right], -1).astype(np.float32), 48_000.0)
+    write_json_atomic(settings, encode_settings(dataclasses.replace(EngineConfig(),
+                                                                    spectrum=SpectrumConfig(hop_size=512))))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc, out = _cli(["analyze", wav, "--settings", settings, "--compact"])
+    card_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    check(rc == 0, f"phase 21b: analyze on the card exited {rc}")
+    t0 = time.perf_counter()
+    rc_cpu, out_cpu = _cli(["analyze", wav, "--settings", settings, "--compact", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    check(rc_cpu == 0, f"phase 21b: analyze --device cpu exited {rc_cpu}")
+    card, cpu = json.loads(out.strip().splitlines()[-1]), json.loads(out_cpu.strip().splitlines()[-1])
+    err = check_analyze(card, cpu, "phase 21b card against cpu")
+    for name in ("sliding_hop_spectra", "reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows",
+                 "three_band_scan"):
+        check(launches[name] > 0, f"phase 21b: {name} never launched")
+    log(f"phase 21b analyze, 3 s stereo 48 kHz, EngineConfig() with the spectrum at hop 512: card "
+        f"{card_s:.1f} s, cpu {cpu_s:.1f} s; card {json.dumps(card)}; differences {json.dumps(err)}; launches "
+        f"{launches} [{card_line()}]")
+
+
+def phase21c_commands(dev) -> None:
+    """``selftest``, ``precompile`` and ``settings --init`` on the card."""
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.persistence import SettingsHandle
+
+    rc, out = _cli(["selftest", "--device", "cuda"])
+    check(rc == 0, f"phase 21c: selftest exited {rc}: {out}")
+    rc, pre = _cli(["precompile", "--streams", "256"])
+    check(rc == 0, f"phase 21c: precompile exited {rc}")
+    pre = json.loads(pre.strip().splitlines()[-1])
+    path = str(CLI_DIR / "default.json")
+    rc, _ = _cli(["settings", "--init", path])
+    check(rc == 0 and SettingsHandle.load_or_default(path) == EngineConfig(),
+          "phase 21c: settings --init does not load back to EngineConfig()")
+    log(f"phase 21c selftest: {out.strip()}; precompile {json.dumps(pre)}; settings --init loads back to "
+        f"EngineConfig() [{card_line()}]")
+
+
+def phase21_cli(dev) -> dict:
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.iir import three_band_scan
+    from openmeters_tpu_torch.ops.reassigned_columns import reassigned_columns
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop, sliding_hop_spectra
+
+    counters = {c.__name__: c for c in (sliding_hop, sliding_hop_spectra, reassigned_sliding_hop, reassigned_columns,
+                                        corr_dots_sums_ring, window_rows, three_band_scan)}
+    served = phase21a_serve_socket(dev, counters)
+    torch.cuda.empty_cache()
+    phase21b_analyze(dev, counters)
+    phase21c_commands(dev)
+    return served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1846,6 +2316,8 @@ def main() -> int:
                           ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows", "three_band_scan"))
     torch.cuda.empty_cache()
     phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
+    torch.cuda.empty_cache()
+    phase21_cli(dev)
 
     def entry(name, source, replaces, n, k):
         extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms")

@@ -34,10 +34,14 @@ import torch
 
 from openmeters_tpu_torch.ops import reassigned_columns as rcols
 from openmeters_tpu_torch.ops.framing import FrameBuffer
-from openmeters_tpu_torch.ops.sliding_hop import pack_classic_db
+from openmeters_tpu_torch.ops.sliding_hop import (
+    CLASSIC_DB_STORE_LO,
+    CLASSIC_DB_STORE_RANGE,
+    pack_classic_db,
+)
 from openmeters_tpu_torch.ops.sliding_reassigned import SlidingReassigned
 from openmeters_tpu_torch.ops.sliding_stft import SlidingSTFT
-from openmeters_tpu_torch.utils.level import DB_FLOOR, power_to_db
+from openmeters_tpu_torch.utils.level import DB_FLOOR, power_to_db, sanitize_sample_rate
 from openmeters_tpu_torch.utils.windows import (
     WindowKind,
     derivative_window,
@@ -51,6 +55,23 @@ from openmeters_tpu_torch.utils.windows import (
 DEFAULT_FFT_SIZE = 2048
 DEFAULT_HOP_SIZE = 64
 ANALYSIS_FLOOR_POWER = 1e-14  # reassigned points below this are culled
+MAX_HISTORY_COLUMNS = 8192
+HISTORY_BYTE_BUDGET = 128 * 1024 * 1024
+
+
+def unpack_classic_db(codes) -> np.ndarray:
+    """u16 codes (a numpy array) -> dB over the fixed store domain."""
+    return np.asarray(codes).astype(np.float32) * (CLASSIC_DB_STORE_RANGE / 65535.0) + CLASSIC_DB_STORE_LO
+
+
+def history_columns(reassigned: bool, points: int, requested: int) -> int:
+    """The view history's retention budget: classic columns pack two u16
+    codes per u32; reassigned points are 12-byte splats with a doubled
+    budget."""
+    stride = points * 12 if reassigned else ((points + 1) // 2) * 4
+    budget = HISTORY_BYTE_BUDGET * (2 if reassigned else 1)
+    cap = max(budget // max(stride, 1), 1)
+    return min(max(requested, 1), MAX_HISTORY_COLUMNS, cap)
 
 
 class ClassicColumns(NamedTuple):
@@ -75,6 +96,17 @@ class SpectrogramConfig:
     use_reassignment: bool = True
     zero_padding_factor: int = 1
     block_frames: int = 256
+
+    def normalized(self) -> "SpectrogramConfig":
+        fft = self.fft_size or DEFAULT_FFT_SIZE
+        hop = self.hop_size or max(min(DEFAULT_HOP_SIZE, fft), 1)
+        return dataclasses.replace(
+            self,
+            sample_rate=sanitize_sample_rate(self.sample_rate),
+            fft_size=fft,
+            hop_size=hop,
+            zero_padding_factor=max(self.zero_padding_factor, 1),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

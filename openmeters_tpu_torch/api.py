@@ -128,3 +128,14 @@ def analyze(
     audio = _pad_channels(audio, engine.config.channels)
     session = AnalysisSession(engine, audio.shape[0], device)
     return session.run(audio)
+
+
+def analyze_wav(
+    path: str, config: EngineConfig | None = None, *, device: torch.device | str = "cuda"
+) -> list[dict]:
+    """Analyze one WAV file through every configured analyzer, at the
+    file's own sample rate, on ``device``."""
+    from openmeters_tpu_torch.io.wav import read_wav
+
+    samples, rate = read_wav(path)
+    return analyze(samples, rate, config, device=device)

@@ -19,9 +19,10 @@ def _template(engine) -> dict:
     return engine.init(1, device="meta")
 
 
-def carry_from_jax(carry_np: dict, engine, device=None) -> dict:
+def carry_from_jax(carry_np: dict, engine, device="cuda") -> dict:
     """The port's carry for ``engine`` from the JAX package's carry given
-    as numpy arrays (``jax.device_get`` of it).  Arrays are copied."""
+    as numpy arrays (``jax.device_get`` of it), on ``device`` (the card
+    unless given ``"cpu"``).  Arrays are copied."""
 
     def convert(node, tmpl, path):
         if isinstance(tmpl, dict):

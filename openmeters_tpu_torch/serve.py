@@ -30,10 +30,15 @@ thread while the old one serves; the next advance adopts it, carrying the
 live state over with :meth:`MeterEngine.migrate_carry`.  The warm-up
 touches no tensor of the live carry.
 
+View histories: :meth:`MeterServer.declare_view` sizes host rings of
+spectrogram columns and waveform columns that the display-rate drain feeds
+(``fetch="full"``); :func:`attach_settings_watcher` hot-reloads a server
+from its settings file; :class:`MultiRateMeterServer` with a
+``socket_path`` serves external producers through the session runtime
+(``ingest/runtime.py``).
+
 Runs on the card unless given ``device="cpu"``; where no card is present
-``"cuda"`` raises.  Not ported yet: ``declare_view`` and the view
-histories, the settings watcher, the socket runtime (ROADMAP A11d), and a
-mesh (A12).
+``"cuda"`` raises.  Not ported yet: a mesh (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -48,9 +53,11 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from openmeters_tpu_torch.analyzers.spectrogram import history_columns
 from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMeta
 from openmeters_tpu_torch.ingest import Transport
 from openmeters_tpu_torch.tracing import EngineStats
+from openmeters_tpu_torch.views import SpectrogramHistory, WaveformHistory, waveform_columns_from_meters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +216,8 @@ class MeterServer:
         self._swap_thread = None
         self._pending_swap = None
         self._swap_error = None
+        self._view_histories: dict = {}  # declare_view's host rings
+        self._view_stream = 0
         self._adopt_pipeline(
             _prepare_pipeline(self.engine, config, device, self.meta),
             self.engine.init(s, device=device),
@@ -239,6 +248,24 @@ class MeterServer:
             self._dev_spectrum_snap = self.engine.analyzers["spectrum"].emit(self.carry["spectrum"])
         else:
             self._dev_spectrum_snap = None
+        self._revalidate_view_histories()
+
+    def _revalidate_view_histories(self) -> None:
+        """Re-fit the declared rings after a reconfiguration: a changed FFT
+        geometry changes the spectrogram column width; a removed analyzer
+        drops its ring."""
+        hist = self._view_histories.get("spectrogram")
+        if hist is None:
+            return
+        sg = self.engine.analyzers.get("spectrogram")
+        if sg is None:
+            del self._view_histories["spectrogram"]
+            return
+        bins = sg.padded_fft // 2 + 1
+        if bins != hist.bins:
+            self._view_histories["spectrogram"] = SpectrogramHistory(
+                bins, history_columns(sg.config.use_reassignment, bins, hist.columns)
+            )
 
     # -- control ------------------------------------------------------------
 
@@ -360,6 +387,59 @@ class MeterServer:
 
     def set_active(self, stream: int, active: bool) -> None:
         self.transport.set_active(stream, active)
+
+    def declare_view(self, stream: int = 0, spectrogram_columns: int | None = None,
+                     waveform_columns: int | None = None) -> dict:
+        """A display declares, before ingest, how much history of one stream
+        it shows; the server keeps host rings of that size, clamped by the
+        history budget (:func:`history_columns`: 128 MiB, 8192 columns;
+        the waveform's ``MAX_COLUMN_CAPACITY``), and the display-rate drain
+        feeds them (``fetch="full"``: meter mode fetches no bulk leaves).
+        Returns the granted retention."""
+        granted = {}
+        sg = self.engine.analyzers.get("spectrogram")
+        if spectrogram_columns is not None and sg is not None:
+            bins = sg.padded_fft // 2 + 1
+            cols = history_columns(sg.config.use_reassignment, bins, spectrogram_columns)
+            hist = self._view_histories.get("spectrogram")
+            if hist is None or hist.bins != bins:
+                self._view_histories["spectrogram"] = SpectrogramHistory(bins, cols)
+            else:
+                hist.resize(cols)
+            granted["spectrogram_columns"] = cols
+        if waveform_columns is not None and "waveform" in self.engine.analyzers:
+            hist = self._view_histories.get("waveform")
+            if hist is None:
+                self._view_histories["waveform"] = WaveformHistory(max_columns=waveform_columns)
+            else:
+                hist.resize(waveform_columns)
+            granted["waveform_columns"] = self._view_histories["waveform"].max_columns
+        self._view_stream = stream
+        return granted
+
+    def _feed_histories(self) -> None:
+        """Push the drained bulk leaves of the declared stream into its
+        rings."""
+        if not self._view_histories:
+            return
+        meters = self.last_meters()
+        if not meters:
+            return
+        st = self._view_stream
+        sg_hist = self._view_histories.get("spectrogram")
+        if sg_hist is not None:
+            codes_key = next((k for k in meters if "spectrogram" in k and "codes" in k), None)
+            valid_key = next((k for k in meters if "spectrogram" in k and "valid" in k), None)
+            if codes_key and valid_key:
+                codes = meters[codes_key][st]
+                valid = meters[valid_key][st].astype(bool)
+                if valid.any():
+                    sg_hist.push(codes[valid].astype(np.uint16))
+        wf_hist = self._view_histories.get("waveform")
+        if wf_hist is not None:
+            cols = waveform_columns_from_meters(meters, st)
+            if cols:
+                wf_hist.push_columns(cols)
 
     def set_stream_layout(self, stream: int, channels: int, positions=None) -> None:
         """Apply a producer's channel layout to one stream: its stereo fold
@@ -487,9 +567,9 @@ class MeterServer:
             done.synchronize()
         self.last_snapshot = host.numpy()
         self._last_layout = layout
-        now = time.perf_counter()
-        self.latencies_ms.append((now - t0) * 1e3)
-        self.host_seconds["drain"] += now - t
+        self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        self._feed_histories()
+        self.host_seconds["drain"] += time.perf_counter() - t
         if self.on_drain is not None:
             self.on_drain(self)
 
@@ -606,17 +686,29 @@ class MultiRateMeterServer:
     :class:`MeterServer` a rate, its engine at :meth:`EngineConfig.at_rate`.
     Rate-scaled blocks hold equal wall time (256 at 48 kHz, 235 at 44.1 kHz),
     so one clock advances every bucket.  Producers reach a bucket through
-    its ``transport``; the socket runtime is not ported yet (ROADMAP A11d)."""
+    its ``transport``, or, given a ``socket_path``, connect over a Unix
+    socket to a :class:`~openmeters_tpu_torch.ingest.runtime.SessionRuntime`
+    that routes each by its announced rate and identity; each negotiated
+    channel layout becomes its stream's fold and weight rows."""
 
     def __init__(self, config: ServeConfig, rates: tuple[float, ...] = (48_000.0,),
                  socket_path: str | None = None, mesh=None, device="cuda"):
-        if socket_path is not None:
-            raise NotImplementedError("the socket runtime is not ported yet (ROADMAP A11d)")
         self.servers: dict[float, MeterServer] = {}
         for r in sorted(float(r) for r in rates):
             self.servers[r] = MeterServer(
                 dataclasses.replace(config, engine=self._at_rate(config.engine or EngineConfig(), r)),
                 mesh=mesh, device=device,
+            )
+        self.runtime = None
+        if socket_path is not None:
+            from openmeters_tpu_torch.ingest.runtime import SessionRuntime
+
+            def on_layout(rate, slot, channels, positions):
+                self.servers[rate].set_stream_layout(slot, channels, positions)
+
+            self.runtime = SessionRuntime(
+                {r: s.transport for r, s in self.servers.items()}, socket_path,
+                max_channels=config.channels, on_layout=on_layout,
             )
 
     @staticmethod
@@ -674,8 +766,67 @@ class MultiRateMeterServer:
         return {rate: s.report() for rate, s in self.servers.items()}
 
     def close(self) -> None:
+        if self.runtime is not None:
+            self.runtime.shutdown()
         for s in self.servers.values():
             s.close()
+
+
+def attach_settings_watcher(server: MeterServer, path: str, min_interval: float = 0.5):
+    """Hot-reload a running server from its settings file.
+
+    Rides the display-rate drain callback (``on_drain``, after any consumer
+    already there): at most every ``min_interval`` seconds it stats the
+    file, and on a change of mtime or size loads it (the lossy schema of
+    :mod:`~openmeters_tpu_torch.persistence`) and stages it with
+    :meth:`MeterServer.apply_settings_async`, so the old configuration
+    serves while the new engine warms.  ``sample_rate`` and
+    ``block_frames`` are pinned to the live server's (a bucket of
+    :class:`MultiRateMeterServer` runs at :meth:`EngineConfig.at_rate`'s
+    geometry), so a rate edit in the file is ignored; a file the server
+    refuses is logged and the old configuration kept.  Returns the
+    callback."""
+    import logging
+    import os
+
+    from openmeters_tpu_torch.persistence import SettingsHandle
+
+    log = logging.getLogger("openmeters_tpu_torch.serve")
+
+    def _sig():
+        st = os.stat(path)
+        return (st.st_mtime_ns, st.st_size)
+
+    state = {"sig": _sig() if os.path.exists(path) else None, "next": 0.0}
+    prev = server.on_drain
+
+    def on_drain(s):
+        if prev is not None:
+            prev(s)
+        now = time.monotonic()
+        if now < state["next"] or s.reconfig_pending:
+            return
+        state["next"] = now + min_interval
+        try:
+            sig = _sig()
+        except OSError:
+            return  # mid-rename (the saver writes tmp + rename) or deleted
+        if sig == state["sig"]:
+            return
+        state["sig"] = sig
+        try:
+            ecfg = s.engine.config
+            cfg = dataclasses.replace(
+                SettingsHandle.load_or_default(path),
+                sample_rate=ecfg.sample_rate, block_frames=ecfg.block_frames,
+            )
+            s.apply_settings_async(cfg)
+            log.info("settings change detected (%s): warming the new engine", path)
+        except (ValueError, RuntimeError) as exc:
+            log.warning("settings change rejected: %s", exc)
+
+    server.on_drain = on_drain
+    return on_drain
 
 
 def ingest_benchmark(

@@ -1,7 +1,8 @@
 """Bars for holding one implementation against another: a kernel against
 its plain version, the card against the CPU, or the port against the JAX
 package.  First the reassigned spectrogram's, then the oscilloscope's,
-then the spectrum's, the stereometer's and the waveform's.
+then the spectrum's, the stereometer's and the waveform's, then a whole
+engine hop's, a server's fetched meters and the CLI's ``analyze`` output.
 
 Reassigned spectrogram columns.
 
@@ -521,4 +522,41 @@ def check_meters(ours: dict, ref: dict, where: str = "") -> dict:
         err = snapshot_errors(so[name], sr[name])
         check_snapshot(err, f"{where} {name}")
         out[name] = err
+    return out
+
+
+# -- the CLI's ``analyze`` output -------------------------------------------------
+
+# field of ``analyze``'s JSON -> (bar, relative): each analyzer's own bar
+ANALYZE_BARS = {
+    ("loudness", "short_term_lufs"): (LOUDNESS_LU, False),
+    ("loudness", "momentary_lufs"): (LOUDNESS_LU, False),
+    ("loudness", "true_peak_db"): (TRUE_PEAK_DB, False),
+    ("spectrum", "peak_bin_db"): (SPECTRUM_DB, False),
+    ("spectrogram", "peak_db"): (SPECTRUM_DB, False),
+    ("oscilloscope", "period_samples"): (PERIOD_REL, True),
+    ("stereometer", "correlation"): (STEREO_WAVE_BARS["correlations"], False),
+}
+
+
+def check_analyze(ours: dict, ref: dict, where: str = "") -> dict:
+    """Hold one ``analyze`` JSON object to another: the same sections and
+    fields, ``hops`` and the oscilloscope's ``locked`` equal, every other
+    field within its bar in :data:`ANALYZE_BARS`.  Raises
+    ``AssertionError``; returns ``{"section.field": difference}``."""
+    if set(ours) != set(ref) or any(set(ours[k]) != set(ref[k]) for k in ref if k != "hops"):
+        raise AssertionError(f"{where}: fields differ: {ours} against {ref}")
+    if ours["hops"] != ref["hops"]:
+        raise AssertionError(f"{where}: hops {ours['hops']} != {ref['hops']}")
+    if "oscilloscope" in ref and ours["oscilloscope"]["locked"] != ref["oscilloscope"]["locked"]:
+        raise AssertionError(f"{where}: oscilloscope locked differs")
+    out = {}
+    for (section, field), (bar, relative) in ANALYZE_BARS.items():
+        if section not in ref:
+            continue
+        a, b = ours[section][field], ref[section][field]
+        err = abs(a - b) / (max(abs(b), 1e-12) if relative else 1.0)
+        out[f"{section}.{field}"] = err
+        if not err <= bar:
+            raise AssertionError(f"{where}: {section}.{field} {a} against {b} (bar {bar}{' relative' if relative else ''})")
     return out

@@ -634,3 +634,41 @@ def test_meter_server_card_matches_cpu(card):
     finally:
         for srv in servers:
             srv.close()
+
+
+@pytest.mark.cuda
+def test_cli_selftest_on_the_card(card, capsys):
+    from openmeters_tpu_torch.__main__ import main
+
+    assert main(["selftest"]) == 0
+    assert "(OK)" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_cli_analyze_card_matches_cpu(card, tmp_path, capsys):
+    """``analyze`` of a stereo WAV under ``EngineConfig()`` with the
+    spectrum at hop 512 (a settings file), on the card and with ``--device
+    cpu``: every field within its bar (``check_analyze``)."""
+    import dataclasses
+    import json
+
+    from openmeters_tpu_torch.__main__ import main
+    from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.io.wav import write_wav
+    from openmeters_tpu_torch.persistence import encode_settings, write_json_atomic
+    from openmeters_tpu_torch.utils.parity import check_analyze
+
+    rng = np.random.default_rng(8)
+    t = np.arange(48_000) / 48_000.0
+    left = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * np.sin(2 * np.pi * 1700.0 * t)
+    left += 0.01 * rng.standard_normal(t.shape)
+    wav, settings = str(tmp_path / "in.wav"), str(tmp_path / "settings.json")
+    write_wav(wav, np.stack([left, 0.6 * left], -1).astype(np.float32), 48_000.0)
+    write_json_atomic(settings, encode_settings(dataclasses.replace(EngineConfig(),
+                                                                    spectrum=SpectrumConfig(hop_size=512))))
+    outs = []
+    for device in ("cuda", "cpu"):
+        assert main(["analyze", wav, "--settings", settings, "--compact", "--device", device]) == 0
+        outs.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    check_analyze(*outs, "card against cpu")

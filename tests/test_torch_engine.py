@@ -142,7 +142,7 @@ def _continue_from_jax_carry(jcfg, tcfg, s, before, after, seed, resets=None):
     assert not jsess._pending_blocks  # the carry is taken on a spectrum-hop boundary
     carry_np = jax.device_get(jsess.carry)
     tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu")
-    tsess.carry = convert.carry_from_jax(carry_np, tsess.engine)
+    tsess.carry = convert.carry_from_jax(carry_np, tsess.engine, device="cpu")
 
     back = convert.carry_to_numpy(tsess.carry)
     flat_j = jax.tree_util.tree_leaves_with_path(carry_np)
@@ -252,7 +252,7 @@ def test_carry_from_jax_cuts_tile_padding():
     re = rng.standard_normal((2, 8193)).astype(np.float32)
     sdft["re"] = np.pad(re, ((0, 0), (0, 17 * 512 - 8193)))
     sdft["im"] = np.pad(-re, ((0, 0), (0, 17 * 512 - 8193)))
-    back = convert.carry_from_jax(carry, engine)["spectrum"]["sdft"]
+    back = convert.carry_from_jax(carry, engine, device="cpu")["spectrum"]["sdft"]
     assert tuple(back["re"].shape) == (2, 8193) and back["count"] == 0
     np.testing.assert_array_equal(back["re"].numpy(), re)
     np.testing.assert_array_equal(back["im"].numpy(), -re)
@@ -338,6 +338,8 @@ def test_port_imports_no_jax():
         "assert sorted(full[-1]) == ['loudness', 'oscilloscope', 'spectrogram', 'spectrum',\n"
         "                            'stereometer', 'waveform']\n"
         "import openmeters_tpu_torch.ops.corr, openmeters_tpu_torch.ops.rows\n"
+        "import openmeters_tpu_torch.__main__, openmeters_tpu_torch.persistence\n"
+        "import openmeters_tpu_torch.views, openmeters_tpu_torch.ingest.runtime\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
         "        or m == 'openmeters_tpu']\n"
         "print(json.dumps({'hops': len(out), 'mods': mods}))\n"

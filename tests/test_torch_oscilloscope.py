@@ -285,7 +285,7 @@ def test_analyzer_single_steps_on_noise(name, record_property):
     for i in range(hops):
         blk = audio[:, i * B : (i + 1) * B]
         rm = reset if i == 40 else None
-        tc = convert.carry_from_jax(jax.device_get(jc), ta)
+        tc = convert.carry_from_jax(jax.device_get(jc), ta, device="cpu")
         tc, ts = ta.step(tc, _t(blk), None if rm is None else _t(rm))
         jc, js = step(jc, blk, None if rm is None else jnp.asarray(rm))
         errors = oscilloscope_errors(ts, js, _state(tc), _jax_state(jc))
@@ -349,7 +349,7 @@ def test_engine_defaults_and_carry_tree():
     jcarry = JMeterEngine(JEngineConfig(spectrum=None, stereometer=None, waveform=None)).init(2)[
         "oscilloscope"
     ]
-    back = convert.carry_to_numpy(convert.carry_from_jax(jax.device_get(jcarry), osc))
+    back = convert.carry_to_numpy(convert.carry_from_jax(jax.device_get(jcarry), osc, device="cpu"))
     for path, leaf in jax.tree_util.tree_leaves_with_path(jax.device_get(jcarry)):
         ours = back
         for key in path:

@@ -390,7 +390,7 @@ def test_carry_from_jax_continues_reassigned():
     carry_np = jax.device_get(jsess.carry)
     assert set(carry_np["spectrogram"]) == {"fb", "srs"}
     tsess = tapi.AnalysisSession(MeterEngine(tcfg), s, "cpu")
-    tsess.carry = convert.carry_from_jax(carry_np, tsess.engine)
+    tsess.carry = convert.carry_from_jax(carry_np, tsess.engine, device="cpu")
     srs = tsess.carry["spectrogram"]["srs"]
     assert isinstance(srs["count"], int) and isinstance(srs["hx_avail"], int)
     assert srs["anchored"] is True and srs["hx"].shape == carry_np["spectrogram"]["srs"]["hx"].shape

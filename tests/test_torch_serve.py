@@ -16,7 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_pairs import NONE, stereo_audio, tiny_engine, to_jax  # noqa: E402
+from torch_pairs import NONE, stereo_audio, tiny_engine, to_jax, unaligned  # noqa: E402
 
 from openmeters_tpu import serve as jserve  # noqa: E402
 from openmeters_tpu import tracing as jtracing  # noqa: E402
@@ -36,14 +36,6 @@ REPO = Path(__file__).resolve().parents[1]
 RATE, B = 48_000.0, 256
 
 
-def _unaligned(a: np.ndarray) -> np.ndarray:
-    """A zeroed copy of ``a`` whose data starts 16 bytes past a 64-byte
-    boundary."""
-    raw = np.zeros(a.nbytes + 128, np.uint8)
-    off = (16 - raw.ctypes.data) % 64
-    return raw[off : off + a.nbytes].view(a.dtype).reshape(a.shape)
-
-
 def pair(cfg: ServeConfig):
     """The JAX package's server and the port's on the CPU, one config.
 
@@ -55,7 +47,7 @@ def pair(cfg: ServeConfig):
     buffers are therefore moved off that alignment: every ``device_put``
     then copies, as it does onto an accelerator."""
     jax_server = jserve.MeterServer(to_jax(cfg))
-    jax_server._buffers = [tuple(_unaligned(a) for a in bufs) for bufs in jax_server._buffers]
+    jax_server._buffers = [tuple(unaligned(a) for a in bufs) for bufs in jax_server._buffers]
     return jax_server, MeterServer(cfg, device="cpu")
 
 
@@ -342,7 +334,7 @@ def test_multirate_lufs_both_buckets_matches_jax():
     servers = [jserve.MultiRateMeterServer(to_jax(cfg), rates=(44_100.0, 48_000.0)),
                MultiRateMeterServer(cfg, rates=(44_100.0, 48_000.0), device="cpu")]
     for srv in servers[0].servers.values():  # see pair()
-        srv._buffers = [tuple(_unaligned(a) for a in bufs) for bufs in srv._buffers]
+        srv._buffers = [tuple(unaligned(a) for a in bufs) for bufs in srv._buffers]
     key = "['loudness'].momentary_lufs"
     try:
         for i in range(100):
@@ -367,7 +359,7 @@ def test_multirate_lufs_both_buckets_matches_jax():
         assert reports[1][rate]["hops"] == reports[0][rate]["hops"] == 100
 
 
-def test_multirate_apply_settings_per_bucket():
+def test_multirate_apply_settings_per_bucket(tmp_path):
     cfg = ServeConfig(n_streams=1, engine=tiny_engine(), realtime=False)
     server = MultiRateMeterServer(cfg, rates=(48_000.0, 44_100.0), device="cpu")
     try:
@@ -379,8 +371,16 @@ def test_multirate_apply_settings_per_bucket():
             assert not s.reconfig_pending
     finally:
         server.close()
-    with pytest.raises(NotImplementedError, match="A11d"):
-        MultiRateMeterServer(cfg, socket_path="x.sock", device="cpu")
+    # the socket runtime serves both buckets (tests/test_torch_cli.py drives it); a mesh is A12's
+    sock = tmp_path / "x.sock"
+    server = MultiRateMeterServer(cfg, rates=(48_000.0, 44_100.0), socket_path=str(sock), device="cpu")
+    try:
+        assert sock.exists() and set(server.runtime.view()["rates"]) == {44_100.0, 48_000.0}
+    finally:
+        server.close()
+    assert not sock.exists()
+    with pytest.raises(NotImplementedError, match="A12"):
+        MultiRateMeterServer(cfg, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("fetch", ["full", "meters"])

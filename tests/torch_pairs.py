@@ -49,6 +49,14 @@ def to_jax(x):
     return x
 
 
+def unaligned(a: np.ndarray) -> np.ndarray:
+    """A zeroed copy of ``a`` whose data starts 16 bytes past a 64-byte
+    boundary."""
+    raw = np.zeros(a.nbytes + 128, np.uint8)
+    off = (16 - raw.ctypes.data) % 64
+    return raw[off : off + a.nbytes].view(a.dtype).reshape(a.shape)
+
+
 def tiny_engine(**kw) -> EngineConfig:
     """The JAX serve tests' tiny engine: loudness and a classic 256/64
     spectrogram at two channels."""

@@ -64,8 +64,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
     kernel); plus B1b's times at 16384/512, where the kernel alone is the
     whole sliding path of a steady hop, against the direct windowed rFFT;
 15. the ``three_band`` crossover kernel against its plain per-sample loop
-    at S=8192 x 2 lanes x 256 samples with NaN and infinite samples, both
-    cascade settings (bit-exact), plus the times;
+    with NaN and infinite samples, both cascade settings, bit-exact, at the
+    blocks of 48, 44.1, 96 and 192 kHz (``[256, 8192, 2]``, ``[235, 8192,
+    2]``, ``[512, 4096, 2]``, ``[1024, 2048, 2]``), plus the times (the
+    kernel as a CUDA graph of 200 launches), the byte bound and the serial
+    chain's floor (from the instructions a sample its SASS issues, at the
+    card's highest SM clock);
 16. the spectrum slice on the card against the CPU through
     ``AnalysisSession.feed`` (S=4, 150 spectrum hops, a reset): 16384/512 at
     cadence 2 with each averaging mode, 16384/128 dual trace, the stock
@@ -130,10 +134,12 @@ computing the same function (``library_ms``), then the card's
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -245,23 +251,18 @@ def fmt_bound(k: dict) -> str:
 TENSOR_CORE_KERNELS = ("sliding_hop_deltas_kernel", "reassigned_hop_kernel")
 
 
-def tensor_core_sass(lib_path) -> dict:
+def tensor_core_sass() -> dict:
     """``{kernel: tensor-core opcodes}`` from ``cuobjdump -sass`` of the
     built library, for each of ``TENSOR_CORE_KERNELS`` (every instance of a
     template); fails if one shows none."""
     from openmeters_tpu_torch.ops import _build
 
-    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
     found = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        for kernel in TENSOR_CORE_KERNELS:
-            if kernel in name:
-                ops = {w.split(".")[0] for w in part.split() if w.startswith(("HGMMA", "HMMA"))}
-                check(bool(ops), f"{name}: no tensor-core instruction in its SASS")
-                found.setdefault(kernel, set()).update(ops)
+    for kernel in TENSOR_CORE_KERNELS:
+        for name, instrs in _build.kernel_sass(kernel).items():
+            ops = {w.split(".")[0] for _, text in instrs for w in text.split() if w.startswith(("HGMMA", "HMMA"))}
+            check(bool(ops), f"{name}: no tensor-core instruction in its SASS")
+            found.setdefault(kernel, set()).update(ops)
     check(set(found) == set(TENSOR_CORE_KERNELS), f"kernels not found in the SASS: {found}")
     return {k: sorted(v) for k, v in found.items()}
 
@@ -1310,46 +1311,155 @@ def phase14_sliding_spectra(dev) -> dict:
     return result
 
 
+# the crossover's shapes: (frames a block, streams) at 48, 44.1, 96 and 192 kHz, two channels a stream
+THREE_BAND_SHAPES = ((256, FLAGSHIP_S, 48_000.0), (235, FLAGSHIP_S, 44_100.0), (512, 4096, 96_000.0),
+                     (1024, 2048, 192_000.0))
+
+
+def time_graph(fn, reps: int) -> float:
+    """Mean ms per call of ``reps`` calls captured in one CUDA graph and
+    replayed, by CUDA events: the device's time without the host's issue,
+    for kernels shorter than their wrapper's Python."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
+
+
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+_BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?(0x[0-9a-f]+)")
+
+
+def sass_loops(instrs: list[tuple[int, str]], op: str) -> list[collections.Counter]:
+    """The loops of one function's SASS (``_build.kernel_sass``) that run
+    ``op``: for each branch back to an earlier address, the opcodes from
+    there to the branch, counted by name without modifiers (``FMUL``,
+    ``LDS``, ``BRA``).  A span with an ``EXIT`` in it is no loop: the
+    compiler puts a wait's retry after the function's exits, from where it
+    branches back into the body."""
+    loops = []
+    for addr, text in instrs:
+        target = _BRANCH.search(text)
+        if target and int(target.group(1), 16) <= addr:
+            start = int(target.group(1), 16)
+            ops = collections.Counter(_opcode(t) for a, t in instrs if start <= a <= addr)
+            del ops["NOP"]
+            if ops[op] and not ops["EXIT"]:
+                loops.append(ops)
+    return loops
+
+
+def _opcode(text: str) -> str:
+    words = text.split()
+    return (words[1] if words[0].startswith("@") else words[0]).split(".")[0]
+
+
+def three_band_issue(lib_path=None) -> dict:
+    """The crossover kernel's issue cost, read from its SASS in the built
+    library (or ``lib_path``): ``{(cascade_n, high_from_al): [instructions a
+    sample of each warp that runs a share of a lane's filters]}``.  Those
+    warps' sample loops are the loops that hold the most ``FMUL`` (a
+    block's tail loops hold fewer), and a lane's sample takes five products
+    for each of its ``4 cascade_n`` biquads, split evenly over them."""
+    from openmeters_tpu_torch.ops._build import kernel_sass
+
+    out = {}
+    for symbol, lines in kernel_sass("three_band_kernel", lib_path).items():
+        cn, high = re.search(r"three_band_kernelILi(\d+)ELb(\d)E", symbol).groups()
+        loops = sass_loops(lines, "FMUL")
+        if not loops:
+            raise RuntimeError(f"{symbol}: no loop with FMUL in its SASS")
+        chain = [c for c in loops if c["FMUL"] == max(c["FMUL"] for c in loops)]
+        products = 20 * int(cn) / len(chain)  # a sample's products on one warp
+        out[(int(cn), high == "1")] = [sum(c.values()) * products / c["FMUL"] for c in chain]
+    return out
+
+
+def three_band_chain_floor_ms(t: int, lanes: int, per_sample, clock_mhz: float, sms: int) -> float:
+    """The least time the crossover's serial chains could take at ``t``
+    samples and ``lanes`` lanes, from :func:`three_band_issue`'s
+    ``per_sample``: a warp issues at most one instruction a cycle, so a
+    lane's samples take ``t`` times the largest per-warp count; and an SM's
+    four schedulers issue at most four a cycle for the tiles of 32 lanes it
+    holds (``ceil(tiles / sms)``).  A model at the card's highest clock,
+    not a measurement: it is logged, and kept out of the ``kernels`` line."""
+    tiles = -(-lanes // 32)
+    cycles = max(t * max(per_sample), -(-tiles // sms) * t * sum(per_sample) / 4)
+    return cycles / (clock_mhz * 1e3)
+
+
 def phase15_three_band(dev) -> dict:
     from openmeters_tpu_torch.ops.iir import three_band_init, three_band_scan, three_band_scan_reference
 
-    s, b = FLAGSHIP_S, 256
-    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    clean = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
-    x = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
-    x[10, 1, 0], x[50, 2, 1], x[200, 3, 0] = float("nan"), float("inf"), float("-inf")
-    x[:, 4, 1] = float("nan")
-    result = {}
-    for cascade_n, high in ((1, False), (2, True)):
-        kw = dict(cascade_n=cascade_n, cascade_high=high)
-        # a state mid-stream: one clean block first
-        _, state = three_band_scan_reference(clean, three_band_init((s, 2), cascade_n, device=dev), 48_000.0, **kw)
-        got, gstate = three_band_scan(x, state, 48_000.0, **kw)
-        ref, rstate = three_band_scan_reference(x, state, 48_000.0, **kw)
-        torch.cuda.synchronize()
-        err = max(float((got - ref).abs().max()), float((gstate - rstate).abs().max()))
-        exact = torch.equal(got, ref) and torch.equal(gstate, rstate)
-        check(bool(torch.isfinite(got).all()), f"cascade {cascade_n}: non-finite band")
-        check(exact, f"cascade {cascade_n}: kernel differs from the plain loop by {err}")
-        kern = lambda: three_band_scan(x, state, 48_000.0, **kw)  # noqa: E731, B023
-        plain = lambda: three_band_scan_reference(x, state, 48_000.0, **kw)  # noqa: E731, B023
-        p1, k1, k2, p2 = (time_cuda(f, 3) for f in (plain, kern, kern, plain))
-        # per sample and lane, 4 cascades of biquads: 5 products and 4 sums each
-        flops = b * s * 2 * 4 * cascade_n * 9.0
-        bnd = bound(nbytes(x, state, got, gstate) + 4 * 5 * 4, flops)
-        log(
-            f"phase 15 three_band cascade {cascade_n}{' (high from the low split)' if high else ''} "
-            f"[{b}, {s}, 2] with NaN and infinite samples: bit-exact (max |d| {err:.3e}); kernel "
-            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}) [{card_line()}]"
-        )
-        if cascade_n == 1:  # the waveform's, on the literal default's path
-            result = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                      "library_ms": None, **bnd}
-        del got, ref, gstate, rstate, state
-    del x, clean
-    torch.cuda.empty_cache()
-    return result
+    issue, clock = three_band_issue(), max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (cn, high), per_sample in sorted(issue.items()):
+        log(f"phase 15 three_band_kernel<{cn}, {str(high).lower()}>: {len(per_sample)} chain warps a lane, "
+            f"{', '.join(f'{n:.1f}' for n in per_sample)} SASS instructions a sample; max SM clock {clock:.0f} MHz, "
+            f"{sms} SMs")
+    card, shapes, result = card_line(), {}, {}
+    for b, s, rate in THREE_BAND_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        clean = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
+        x = torch.randn((b, s, 2), generator=gen, device=dev) * 0.3
+        # on both sides of the first chunk boundary (16 samples), the last sample, the last lane, a whole lane
+        x[15, 1, 0], x[16, 2, 1], x[b - 1, 3, 0] = float("nan"), float("inf"), float("-inf")
+        x[b // 2, s - 1, 1] = float("inf")
+        x[:, 4, 1] = float("nan")
+        key = f"{b}x{s}x2"
+        for cascade_n, high in ((1, False), (2, True)):
+            kw = dict(cascade_n=cascade_n, cascade_high=high)
+            # a state mid-stream: one clean block first
+            _, state = three_band_scan_reference(clean, three_band_init((s, 2), cascade_n, device=dev), rate, **kw)
+            got, gstate = three_band_scan(x, state, rate, **kw)
+            ref, rstate = three_band_scan_reference(x, state, rate, **kw)
+            torch.cuda.synchronize()
+            err = max(float((got - ref).abs().max()), float((gstate - rstate).abs().max()))
+            exact = torch.equal(got, ref) and torch.equal(gstate, rstate)
+            check(bool(torch.isfinite(got).all()), f"[{key}] cascade {cascade_n}: non-finite band")
+            check(exact, f"[{key}] cascade {cascade_n}: kernel differs from the plain loop by {err}")
+            kern = lambda: three_band_scan(x, state, rate, **kw)  # noqa: E731, B023
+            plain = lambda: three_band_scan_reference(x, state, rate, **kw)  # noqa: E731, B023
+            p1 = time_cuda(plain, 3)
+            k1, k2 = time_graph(kern, 200), time_graph(kern, 200)
+            p2 = time_cuda(plain, 3)
+            # per sample and lane, 4 cascades of biquads: 5 products and 4 sums each
+            flops = b * s * 2 * 4 * cascade_n * 9.0
+            bnd = bound(nbytes(x, state, got, gstate) + 4 * 5 * 4, flops)
+            floor = three_band_chain_floor_ms(b, s * 2, issue[(cascade_n, high)], clock, sms)
+            log(
+                f"phase 15 three_band cascade {cascade_n}{' (high from the low split)' if high else ''} "
+                f"[{b}, {s}, 2] at {rate:.0f} Hz with NaN and infinite samples: bit-exact (max |d| {err:.3e}); "
+                f"kernel {k1:.4f}/{k2:.4f} ms (a graph of 200 launches), plain {p1:.4f}/{p2:.4f} ms, "
+                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), chain floor {floor:.4f} ms [{card}]"
+            )
+            reading = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                       "bound_ms": bnd["bound_ms"]}
+            shapes.setdefault(key, {})[f"cascade{cascade_n}"] = reading
+            if (b, s, cascade_n) == (256, FLAGSHIP_S, 1):  # the waveform's, on the literal default's path
+                result = {**reading, "library_ms": None, **bnd}
+            del got, ref, gstate, rstate, state
+        del x, clean
+        torch.cuda.empty_cache()
+    return {**result, "shapes": shapes}
 
 
 def stereo_audio(s: int, n: int, seed: int, bad: bool = False) -> np.ndarray:
@@ -2284,7 +2394,7 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "smem")):
             log("  ptxas: " + line.strip())
-    for name, ops in tensor_core_sass(_build.library_path()).items():
+    for name, ops in tensor_core_sass().items():
         log(f"phase 2 {name}: tensor-core instructions {', '.join(ops)} in its SASS")
 
     kernel = phase3_kernel(dev)
@@ -2320,7 +2430,7 @@ def main() -> int:
     phase21_cli(dev)
 
     def entry(name, source, replaces, n, k):
-        extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms")
+        extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms", "shapes")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -172,3 +173,41 @@ def build_log() -> str:
     """The compiler's report for the current sources, once built."""
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_TARGET = re.compile(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def kernel_sass(name: str, lib_path=None) -> dict[str, list[tuple[int, str]]]:
+    """``{symbol: [(address, instruction), ...]}`` for each function of the
+    built library (or of ``lib_path``) whose symbol holds ``name``: its SASS
+    from ``cuobjdump -sass``, a branch's target given as an address
+    (``"@!P0 BRA 0xce0"``) whichever way the tool printed it."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    lib = lib_path or library_path()
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        symbol, _, body = part.partition("\n")
+        if name not in symbol:
+            continue
+        instrs, labels, pending = [], {}, []
+        for line in body.splitlines():
+            label, instr = _LABEL.match(line), _INSTR.search(line)
+            if label:
+                pending.append(label.group(1))
+            elif instr:
+                addr = int(instr.group(1), 16)
+                labels.update((p, addr) for p in pending)
+                pending = []
+                instrs.append((addr, instr.group(2)))
+        for i, (addr, text) in enumerate(instrs):
+            target = _TARGET.search(text)
+            if target and target.group(1):
+                instrs[i] = (addr, text.replace(f"`({target.group(1)})", hex(labels[target.group(1)])))
+        found[symbol.strip()] = instrs
+    return found
+

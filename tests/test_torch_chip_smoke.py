@@ -1,0 +1,57 @@
+"""The chip smoke script's SASS reader, on the CPU: ``chip_smoke.py``
+phase 15 counts the instructions a sample that the crossover kernel's
+sample loops issue (``three_band_issue``) and works out the serial chain's
+floor from them (``three_band_chain_floor_ms``).  Here both read synthetic
+``cuobjdump -sass`` text, so neither ``nvcc`` nor a card is needed.
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+
+
+def _sass(symbol, body):
+    """``cuobjdump -sass`` text of one function: ``body`` a list of
+    instructions, ``"BRA <index>"`` a branch to the ``index``-th."""
+    lines = [f"\t\tFunction : {symbol}", '\t.headerflags\t@"EF_CUDA_SM90"']
+    for i, text in enumerate(body):
+        if text.startswith("BRA "):
+            text = f"@P1 BRA {16 * int(text.split()[1]):#x}"
+        lines += [f"        /*{16 * i:04x}*/                   {text} ;      /* 0x000fe40000000800 */",
+                  "                                                              /* 0x000fc80000000000 */"]
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("warps", [1, 2])
+def test_three_band_issue_reads_sass(monkeypatch, warps):
+    """``three_band_issue`` counts the instructions a sample of the
+    innermost loops with the most products in ``cuobjdump -sass`` text:
+    for the LR4 instance (40 products a lane's sample), ``warps`` loops of
+    two samples each (40 / warps products a sample), a tail loop of one
+    sample, and a barrier wait's retry placed after the body, which
+    branches back across the loops and is no loop of its own."""
+    from openmeters_tpu_torch.ops import _build
+
+    per_warp = 40 // warps
+    body = ["LDC R1, c[0x0][0x28]", "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R2], R3"]
+    for n in [2 * per_warp] * warps + [per_warp]:
+        start = len(body)
+        body += ["FMUL R4, R5, R6"] * n + ["FADD R4, R5, R6"] * 9 + ["NOP", f"BRA {start}"]
+    body += ["EXIT", "BRA 1", "BRA " + str(len(body) + 2)]  # the retry, then the trap loop
+    text = _sass("_ZN12_GLOBAL__N_117three_band_kernelILi2ELb1EEEvPKfS2_S2_PfS3_ii", body)
+    text += _sass("_ZN12_GLOBAL__N_117sliding_hop_kernelEv", ["FMUL R1, R2, R3", "BRA 0"])
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", lambda *a, **k: type("Done", (), {"stdout": text})())
+    issue = chip_smoke.three_band_issue("lib.so")
+    want = (2 * per_warp + 9 + 1) / 2  # a loop's products, sums and branch over its two samples
+    assert issue == {(2, True): [want] * warps}
+    floor = chip_smoke.three_band_chain_floor_ms(1024, 4096, issue[(2, True)], 2000.0, 132)
+    # 128 tiles on 132 SMs: each warp's own chain bounds it, 1024 samples at 2 GHz
+    assert floor == pytest.approx(1024 * want / 2e6)

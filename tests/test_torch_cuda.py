@@ -489,21 +489,27 @@ def test_sliding_hop_spectra_rejects_bad_inputs(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [(37, 2), (1, 1), (16, 2), (33, 2)])
+@pytest.mark.parametrize("t", [235, 256, 1024])
 @pytest.mark.parametrize("cascade_n,cascade_high", [(1, False), (2, True)])
-def test_three_band_kernel_matches_plain(card, cascade_n, cascade_high):
-    """The crossover kernel against its plain per-sample loop, with NaN and
-    infinite samples: every product and sum rounds alone in both, so the
-    two agree to the bit."""
+def test_three_band_kernel_matches_plain(card, cascade_n, cascade_high, t, lanes):
+    """The crossover kernel against its plain per-sample loop over three
+    blocks, the state carried, with NaN and infinite samples on both sides
+    of the 16-sample chunk boundaries and in the last lane: every product
+    and sum rounds alone in both, so the two agree to the bit.  74, 1 and
+    66 lanes leave a part of the last 32-lane tile empty and rows that are
+    not 16-byte aligned; 235 samples end on a short chunk."""
     from openmeters_tpu_torch.ops import iir
 
     rng = np.random.default_rng(cascade_n)
-    lanes = (37, 2)
-    x = (rng.standard_normal((3, 256, *lanes)) * 0.3).astype(np.float32)
-    x[1, 10, 1, 0], x[1, 50, 2, 1], x[1, 200, 0, 0] = np.nan, np.inf, -np.inf
-    x[2, :, 5, 1] = np.nan
+    n = int(np.prod(lanes))
+    x = (rng.standard_normal((3, t, n)) * 0.3).astype(np.float32)
+    x[1, 15, n - 1], x[1, 16, 0], x[1, 32, n // 2] = np.nan, np.inf, -np.inf
+    x[1, t - 1, n - 1], x[1, 128, 0] = -np.inf, np.nan
+    x[2, :, n - 1] = np.nan
     state = iir.three_band_init(lanes, cascade_n, device=card)
     ref_state = state.clone()
-    for blk in torch.from_numpy(x).to(card):
+    for blk in torch.from_numpy(x.reshape(3, t, *lanes)).to(card):
         before = iir.three_band_scan.launches
         got, state = iir.three_band_scan(blk, state, 48_000.0, cascade_n=cascade_n, cascade_high=cascade_high)
         assert iir.three_band_scan.launches == before + 1

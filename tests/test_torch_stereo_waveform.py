@@ -72,22 +72,29 @@ def _stereo(s, hops, seed, bad=True):
     return audio
 
 
-@pytest.mark.parametrize("cascade_n,cascade_high", [(1, False), (2, True)])
-def test_three_band_plain_matches_jax(cascade_n, cascade_high, record_property):
+@pytest.mark.parametrize(
+    "cascade_n,cascade_high,t,lanes",
+    [pytest.param(1, False, B, (3, 2), id="1-False"), pytest.param(2, True, B, (3, 2), id="2-True")]
+    + [pytest.param(cn, high, t, (37, 2), id=f"{cn}-{high}-{t}-37x2")
+       for cn, high in ((1, False), (2, True)) for t in (235, 256, 1024)],
+)
+def test_three_band_plain_matches_jax(cascade_n, cascade_high, t, lanes, record_property):
+    """Also at the block lengths of 44.1, 48 and 192 kHz (235, 256 and 1024
+    samples: the chunking the kernel must get right, a short last chunk
+    among them) and a lane count that leaves a partial 32-lane tile."""
     rng = np.random.default_rng(cascade_n)
-    lanes = (3, 2)
     jstate = jiir.three_band_init(lanes, cascade_n)
     tstate = tiir.three_band_init(lanes, cascade_n)
     gap = 0.0
     for blk in range(3):
-        x = (rng.standard_normal((B, *lanes)) * 0.3).astype(np.float32)
+        x = (rng.standard_normal((t, *lanes)) * 0.3).astype(np.float32)
         if blk == 1:
             x[10, 1, 0], x[50, 2, 1], x[200, 0, 0] = np.nan, np.inf, -np.inf
         jb, jstate = jiir.three_band_scan(jnp.asarray(x), jstate, 48_000.0, cascade_n=cascade_n,
                                           cascade_high=cascade_high)
         tb, tstate = tiir.three_band_scan(torch.from_numpy(x), tstate, 48_000.0, cascade_n=cascade_n,
                                           cascade_high=cascade_high)
-        assert tuple(tb.shape) == (B, 3, *lanes) and tuple(tstate.shape) == tuple(jstate.shape)
+        assert tuple(tb.shape) == (t, 3, *lanes) and tuple(tstate.shape) == tuple(jstate.shape)
         assert bool(torch.isfinite(tb).all())
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=0, atol=BAND_ABS)
         np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), rtol=0, atol=BAND_ABS)

@@ -24,7 +24,17 @@ from a seed, S=8192 streams or frames:
   (ring 77312, template 19200, window 28800, nfft 32768, 9601 offsets)
   (3), each with the dots' largest difference from the plain version over
   their peak;
-- ``b6``: ``corr_dots`` on the same windows as rows, S=8192 (10), the same.
+- ``b6``: ``corr_dots`` on the same windows as rows, S=8192 (10), the same;
+- ``three_band``: the crossover ``three_band_scan`` at the blocks of 48,
+  44.1, 96 and 192 kHz (``[256, 8192, 2]``, ``[235, 8192, 2]``, ``[512,
+  4096, 2]``, ``[1024, 2048, 2]``), both cascade settings, as a CUDA graph
+  of 200 launches replayed once (the wrapper's Python is longer than the
+  kernel), each checked bit-exact against its plain version; then, from
+  each tree's built library, the instructions a sample that the kernel's
+  SASS issues on each warp that runs a lane's filters, and the serial
+  chain's floor at each shape at the card's highest SM clock.  Shapes,
+  graph timing, SASS reader and floor are ``chip_smoke.py``'s (phase 15),
+  taken from this checkout.
 
 Each ``--root`` is a directory holding an ``openmeters_tpu_torch`` package
 (default: this checkout), imported in a fresh interpreter, which builds its
@@ -41,7 +51,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SETS = ("b1a", "b2", "b3", "b1b", "b4", "b6")
+SETS = ("b1a", "b2", "b3", "b1b", "b4", "b6", "three_band")
 
 CHILD = r"""
 import sys
@@ -179,9 +189,57 @@ def b6(g):
     return f"B6 {ms:.4f} ms (dots {err:.3e})"
 
 
+def three_band(g):
+    import importlib.util
+
+    from openmeters_tpu_torch.ops import iir
+    from openmeters_tpu_torch.ops._build import library_path
+
+    # this checkout's chip_smoke.py by its path: the tree under test may hold another
+    spec = importlib.util.spec_from_file_location("chip_smoke", %(smoke)r)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = []
+    for t, s, rate in smoke.THREE_BAND_SHAPES:
+        x = torch.randn((t, s, 2), generator=g, device=dev) * 0.3
+        x[15, 1, 0], x[16, 2, 1], x[t - 1, s - 1, 1] = float("nan"), float("inf"), float("-inf")
+        for cn, high in ((1, False), (2, True)):
+            state = torch.randn((4, cn, 2, s, 2), generator=g, device=dev) * 0.1
+            kw = dict(cascade_n=cn, cascade_high=high)
+            ms = smoke.time_graph(lambda: iir.three_band_scan(x, state, rate, **kw), 200)
+            got = iir.three_band_scan(x, state, rate, **kw)
+            ref = iir.three_band_scan_reference(x, state, rate, **kw)
+            exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+            out.append(f"three_band [{t}, {s}, 2] cascade {cn} {ms:.4f} ms ({'bit-exact' if exact else 'DIFFERS'})")
+        del x, state
+        torch.cuda.empty_cache()
+    return "\n".join(out) + f"\nthree_band library {library_path()}"
+
+
 for name in sys.argv[2:]:
     print(globals()[name](torch.Generator(device=dev).manual_seed(1)), flush=True)
-"""
+""" % {"smoke": str(ROOT / "chip_smoke.py")}
+
+
+def three_band_floors(lib: str) -> list[str]:
+    """The SASS issue count of each instance of the crossover kernel in the
+    library ``lib`` and its chain floor at each shape, by this checkout's
+    reader."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import THREE_BAND_SHAPES, max_sm_clock_mhz, three_band_chain_floor_ms, three_band_issue
+
+    clock = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for (cn, high), per_sample in sorted(three_band_issue(lib).items()):
+        floors = ", ".join(f"[{t}, {s}, 2] {three_band_chain_floor_ms(t, 2 * s, per_sample, clock, sms):.4f}"
+                           for t, s, _ in THREE_BAND_SHAPES)
+        out.append(f"three_band<{cn}, {str(high).lower()}> {len(per_sample)} chain warps, "
+                   f"{', '.join(f'{n:.1f}' for n in per_sample)} instructions a sample; "
+                   f"chain floor ms at {clock:.0f} MHz: {floors}")
+    return out
 
 
 def time_root(root: str, kernels: list[str]) -> str:
@@ -190,7 +248,11 @@ def time_root(root: str, kernels: list[str]) -> str:
     res = subprocess.run([sys.executable, "-c", CHILD, root, *kernels], capture_output=True, text=True)
     if res.returncode != 0:
         return f"{root}: failed\n{res.stdout}{res.stderr[-3000:]}"
-    return "\n".join(f"{root}: {line}" for line in res.stdout.splitlines())
+    lines = res.stdout.splitlines()
+    for line in list(lines):
+        if line.startswith("three_band library "):
+            lines += three_band_floors(line.split(" ", 2)[2])
+    return "\n".join(f"{root}: {line}" for line in lines)
 
 
 def main() -> int:

@@ -115,7 +115,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``EngineConfig()`` with the spectrum at hop 512, on the card against
     ``--device cpu`` within ``check_analyze``'s bars, B1b, B2, B4, B7 and
     ``three_band`` each launched; (c) ``selftest``, ``precompile`` and
-    ``settings --init``.
+    ``settings --init``;
+22. the display layers on the card: (a) ``render`` of a 3 s stereo WAV at
+    48 kHz under the literal ``EngineConfig()`` (B2, B4, B7 and
+    ``three_band`` launched) and at 44.1 kHz under
+    ``EngineConfig.at_rate(44100)`` (235-frame blocks: B3, B4, B7 and
+    ``three_band``), 960 x 540, every pane decoded and held against
+    ``--device cpu``'s by the pixel bar of ``utils/parity.py``; (b) the TUI
+    and the PNG consumer on the served literal default at S=8192 (as 20a)
+    for 10 s, the meter-mode panes (loudness, correlation, spectrum,
+    oscilloscope) written, ``report()`` beside 20a's; (c) the same with
+    ``fetch="full"`` at S=256: every pane written, and keys on a pipe
+    (``2`` toggles the spectrogram off and back, each swap warmed while
+    serving and adopted at an advance's start; ``p`` pauses and resumes;
+    ``q`` stops ``run()``).
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -2375,6 +2388,316 @@ def phase21_cli(dev) -> dict:
     return served
 
 
+# -- the display layers ----------------------------------------------------------
+
+RENDER_DIR = OUT_DIR / "phase22"
+PANES = ("loudness", "spectrogram", "spectrum", "oscilloscope", "stereometer", "waveform")
+
+
+def render_wav(path: str, rate: float, seconds: float = 3.0) -> None:
+    """A stereo WAV at ``rate`` made from ``SEED`` as phase 21b makes its
+    own: two tones and faint noise on the left, a third tone on the right."""
+    from openmeters_tpu_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(seconds * rate)) / rate
+    left = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * np.sin(2 * np.pi * 1700.0 * t)
+    left += 0.01 * rng.standard_normal(t.shape)
+    right = 0.6 * left + 0.05 * np.sin(2 * np.pi * 3100.0 * t)
+    write_wav(path, np.stack([left, right], -1).astype(np.float32), rate)
+
+
+def compare_renders(ours, ref) -> dict:
+    """Every PNG in directory ``ref`` against the one of the same name in
+    ``ours`` by the pixel bar of ``utils/parity.py``.  Raises
+    ``AssertionError`` where the two hold other panes, or a pane is off the
+    bar; returns the errors by pane."""
+    from openmeters_tpu_torch.render import decode_png
+    from openmeters_tpu_torch.utils.parity import check_image, image_errors
+
+    ours, ref = Path(ours), Path(ref)
+    names = sorted(p.name for p in ref.glob("*.png"))
+    check(names == sorted(p.name for p in ours.glob("*.png")),
+          f"{ours} and {ref} hold other panes: {sorted(p.name for p in ours.glob('*.png'))} against {names}")
+    out = {}
+    for name in names:
+        err = image_errors(decode_png((ours / name).read_bytes()), decode_png((ref / name).read_bytes()))
+        check_image(err, str(ours / name))
+        out[name[:-4]] = err
+    return out
+
+
+def _drawn(directory: Path, panes) -> bool:
+    """Whether every named pane of ``directory`` is written and has content
+    (the consumer writes a frame whole, by rename)."""
+    from openmeters_tpu_torch.render import decode_png
+
+    try:
+        return all(decode_png((directory / f"{n}.png").read_bytes()).max() > 0 for n in panes)
+    except OSError:
+        return False
+
+
+def _decoded(directory: Path, panes) -> dict:
+    """The named panes of ``directory`` decoded: ``{pane: (height, width)}``;
+    raises where one is missing or does not decode."""
+    from openmeters_tpu_torch.render import decode_png
+
+    out = {}
+    for name in panes:
+        path = directory / f"{name}.png"
+        check(path.exists(), f"{path} was never written")
+        img = decode_png(path.read_bytes())
+        check(img.ndim == 3 and img.shape[2] == 3 and img.max() > 0, f"{path}: nothing drawn")
+        out[name] = img.shape[:2]
+    return out
+
+
+def phase22a_render(dev, counters: dict) -> dict:
+    """``render`` of a 3 s stereo WAV at 48 kHz under the literal
+    ``EngineConfig()``, and of one at 44.1 kHz under
+    ``EngineConfig.at_rate(44100)`` (a settings file: the literal default at
+    the 44.1 kHz bucket's 235-frame block, where the reassigned spectrogram
+    runs a column at a time), 960 x 540, on the card in this process and
+    with ``--device cpu`` in two subprocesses started first (3 threads
+    each); every pane written and decoded, the card's images against the
+    CPU's by the pixel bar."""
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.persistence import encode_settings, write_json_atomic
+
+    RENDER_DIR.mkdir(parents=True, exist_ok=True)
+    at44 = str(RENDER_DIR / "at44100.json")
+    write_json_atomic(at44, encode_settings(EngineConfig.at_rate(44_100.0)))
+    runs = {48_000: ([], ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows", "three_band_scan")),
+            44_100: (["--settings", at44],
+                     ("reassigned_columns", "corr_dots_sums_ring", "window_rows", "three_band_scan"))}
+    cpu, ends = {}, {}
+    env = dict(os.environ, OMP_NUM_THREADS="3")
+    for rate, (extra, _) in runs.items():
+        wav = str(RENDER_DIR / f"in{rate}.wav")
+        render_wav(wav, float(rate))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "openmeters_tpu_torch", "render", wav, str(RENDER_DIR / f"cpu{rate}"), *extra,
+             "--device", "cpu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        cpu[rate] = (proc, time.perf_counter())
+        threading.Thread(target=lambda r=rate, p=proc: (p.wait(), ends.__setitem__(r, time.perf_counter())),
+                         daemon=True).start()
+    out = {}
+    try:
+        for rate, (extra, expect) in runs.items():
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            rc, printed = _cli(["render", str(RENDER_DIR / f"in{rate}.wav"), str(RENDER_DIR / f"card{rate}"), *extra])
+            card_s = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counters.items()}
+            check(rc == 0, f"phase 22a: render at {rate} Hz on the card exited {rc}")
+            check(sorted(Path(p).stem for p in printed.split()) == sorted(PANES),
+                  f"phase 22a: render at {rate} Hz wrote {printed.split()}")
+            for name in expect:
+                check(launches[name] > 0, f"phase 22a: {name} never launched by render at {rate} Hz")
+            out[rate] = {"card_s": card_s, "launches": launches,
+                         "sizes": _decoded(RENDER_DIR / f"card{rate}", PANES)}
+        for rate, (proc, t0) in cpu.items():
+            printed, _ = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"phase 22a: render --device cpu at {rate} Hz exited {proc.returncode}: "
+                  f"{printed[-2000:]}")
+            out[rate]["cpu_s"] = ends.get(rate, time.perf_counter()) - t0
+            out[rate]["errors"] = compare_renders(RENDER_DIR / f"card{rate}", RENDER_DIR / f"cpu{rate}")
+    finally:
+        for proc, _ in cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rate, r in out.items():
+        log(f"phase 22a render, 3 s stereo at {rate} Hz{' (EngineConfig.at_rate: 235-frame blocks)' if rate != 48_000 else ''}, "
+            f"EngineConfig(), 960 x 540: card {r['card_s']:.1f} s, cpu {r['cpu_s']:.1f} s (two cpu renders at once, "
+            f"3 threads each, beside the card's); panes {r['sizes']}; card against cpu: "
+            + ", ".join(f"{k} off {v['off_share']:.3e} mean {v['mean_levels']:.4f} max {v['max_levels']}"
+                        for k, v in r["errors"].items())
+            + f"; launches {r['launches']} [{card_line()}]")
+    return out
+
+
+def phase22b_live(dev, served: dict, seconds: float = 10.0) -> dict:
+    """The display consumers on the served literal default at S=8192 (as
+    20a: 2 channels, ``fetch="meters"`` every sixth hop, the C++ ``Feeder``
+    flat out): 40 warm-up advances, then ``serve_tui_callback`` (into a
+    buffer) and ``attach_render_consumer`` (a frame every 0.5 s) for
+    ``seconds`` of ``run()``; the meter-mode panes written and decoded, and
+    the report beside 20a's."""
+    import contextlib
+    import io
+
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.ingest import Feeder
+    from openmeters_tpu_torch.render_live import attach_render_consumer
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.tracing import EngineStats
+    from openmeters_tpu_torch.tui import serve_tui_callback
+
+    s = FLAGSHIP_S
+    cfg = ServeConfig(n_streams=s, channels=2, engine=EngineConfig(), realtime=False, fetch="meters", fetch_every=6)
+    out_dir = RENDER_DIR / "live_meters"
+    server = MeterServer(cfg, device=dev)
+    feeder = Feeder(server.transport, realtime=False, n_threads=4,
+                    max_buffered_frames=int(cfg.ring_seconds * 48_000.0) // 2)
+    tui = io.StringIO()
+    try:
+        for _ in range(40):
+            server.advance()
+        while server._inflight:  # noqa: SLF001
+            server._drain_one()  # noqa: SLF001
+        torch.cuda.synchronize()
+        server.stats, server.latencies_ms = EngineStats(), []
+        spent = {"tui": 0.0, "frames": 0.0}  # host seconds on the serving thread
+
+        def timed(fn, key):
+            def run(*args):
+                t = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[key] += time.perf_counter() - t
+            return run
+
+        server.on_drain = timed(serve_tui_callback(stream=0), "tui")
+        renderer = attach_render_consumer(server, str(out_dir), every=0.5)
+        renderer.render = timed(renderer.render, "frames")
+        with contextlib.redirect_stderr(tui):
+            report = server.run(seconds)
+        server.close()
+    finally:
+        feeder.stop()
+    sizes = _decoded(out_dir, ("loudness", "stereometer", "spectrum", "oscilloscope"))
+    frames = tui.getvalue().count("\x1b[H")
+    check("LUFS" in tui.getvalue() and frames > 0, "phase 22b: the TUI painted no meters")
+    ref = served["report"]
+    log(f"phase 22b MeterServer S={s}, literal EngineConfig() at 2 channels, fetch meters every 6th hop, Feeder "
+        f"flat out, with the TUI ({frames} frames) and the PNG consumer ({renderer.frames} frames, every 0.5 s) "
+        f"for {seconds:.0f} s: panes {sizes}; drawing on the serving thread: frames {spent['frames']:.3f} s "
+        f"({1e3 * spent['frames'] / max(renderer.frames, 1):.1f} ms a frame), TUI {spent['tui']:.3f} s "
+        f"({1e3 * spent['tui'] / max(frames, 1):.1f} ms a paint) of {report['wall_seconds']} s; "
+        f"realtime_streams {report['realtime_streams']}, latency p50 "
+        f"{report['latency_ms_p50']} p95 {report['latency_ms_p95']} ms; 20a in this run without them: "
+        f"realtime_streams {ref['realtime_streams']}, p50 {ref['latency_ms_p50']} p95 {ref['latency_ms_p95']} ms; "
+        f"report {json.dumps(report)} [{card_line()}]")
+    return {"report": report, "frames": renderer.frames, "tui_frames": frames, "spent": spent}
+
+
+def phase22c_full(dev, s: int = 256) -> dict:
+    """The served literal default with ``fetch="full"`` at S=``s``, the
+    TUI, the PNG consumer (every 0.25 s) and ``attach_key_controls`` on a
+    pipe: once the bulk panes are written, ``2`` toggles the spectrogram
+    off and back (each a new engine warmed on the card while the old one
+    serves, adopted at an advance's start), ``p`` pauses and resumes, and
+    ``q`` stops ``run()``."""
+    import contextlib
+    import io
+
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.ingest import Feeder
+    from openmeters_tpu_torch.render_live import attach_render_consumer
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.tui import attach_key_controls, serve_tui_callback
+
+    cfg = ServeConfig(n_streams=s, channels=2, engine=EngineConfig(), realtime=False, fetch="full", fetch_every=6)
+    out_dir = RENDER_DIR / "live_full"
+    t0 = time.perf_counter()
+    server = MeterServer(cfg, device=dev)
+    feeder = Feeder(server.transport, realtime=False, n_threads=2,
+                    max_buffered_frames=int(cfg.ring_seconds * 48_000.0) // 2)
+    r, w = os.pipe()
+    keys = os.fdopen(r, "rb", buffering=0)
+    tui = serve_tui_callback(stream=1)
+    server.on_drain = tui
+    renderer = attach_render_consumer(server, str(out_dir), stream=1, every=0.25)
+    attach_key_controls(server, source=keys, view=tui.view)
+    ev: dict = {}
+    kept = out_dir / "first"
+    stock = server.engine.config.spectrogram
+
+    def drive() -> None:
+        try:
+            # the first frames with every pane drawn are kept: a toggled
+            # spectrogram starts its scroll empty again
+            ev["panes"] = _wait_for(lambda: _drawn(out_dir, PANES), 120)
+            if ev["panes"]:
+                kept.mkdir(parents=True, exist_ok=True)
+                for n in PANES:
+                    (kept / f"{n}.png").write_bytes((out_dir / f"{n}.png").read_bytes())
+            for on in (False, True):
+                h0 = server.stats.hops
+                os.write(w, b"2")
+                ok = _wait_for(lambda on=on: not server.reconfig_pending
+                               and ("spectrogram" in server.engine.analyzers) == on, 120)
+                ev[f"toggle_{'on' if on else 'off'}"] = (ok, h0, server.stats.hops)
+            os.write(w, b"p")
+            ev["paused"] = _wait_for(lambda: server.paused, 30)
+            h = server.stats.hops
+            time.sleep(0.5)
+            ev["paused_hops"] = (h, server.stats.hops)
+            os.write(w, b"p")
+            ev["resumed"] = _wait_for(lambda: not server.paused and server.stats.hops > h, 30)
+        finally:
+            os.write(w, b"q")
+
+    driver = threading.Thread(target=drive, daemon=True)
+    buf = io.StringIO()
+    try:
+        driver.start()
+        with contextlib.redirect_stderr(buf):
+            report = server.run(300.0)
+        driver.join(timeout=60)
+        carry_dev = {t.device.type for t in torch.utils._pytree.tree_leaves(server.carry["spectrogram"])
+                    if isinstance(t, torch.Tensor)}
+        server.close()
+    finally:
+        feeder.stop()
+        keys.close()
+        os.close(w)
+    wall = time.perf_counter() - t0
+    check(ev.get("panes"), "phase 22c: the panes were never all drawn")
+    sizes = _decoded(kept, PANES)
+    for key in ("toggle_off", "toggle_on"):
+        ok, h0, h1 = ev[key]
+        check(ok and h1 > h0, f"phase 22c: {key} not adopted while serving (hops {h0} -> {h1})")
+    check(server.engine.config.spectrogram == stock, "phase 22c: the re-enabled spectrogram lost its settings")
+    check(carry_dev == {"cuda"}, f"phase 22c: the re-enabled spectrogram's carry is on {carry_dev}")
+    check(ev.get("paused") and ev["paused_hops"][0] == ev["paused_hops"][1] and ev.get("resumed"),
+          f"phase 22c: pause {ev.get('paused')}, hops while paused {ev.get('paused_hops')}, resumed {ev.get('resumed')}")
+    check(report["wall_seconds"] < 290.0, "phase 22c: q did not stop the loop")
+    log(f"phase 22c MeterServer S={s}, literal EngineConfig() at 2 channels, fetch full every 6th hop, stream 1 "
+        f"shown: panes {sizes} ({renderer.frames} frames, every 0.25 s); key 2 off adopted at hop "
+        f"{ev['toggle_off'][2]} (pressed at {ev['toggle_off'][1]}), on at {ev['toggle_on'][2]} (pressed at "
+        f"{ev['toggle_on'][1]}), the stock settings restored from the stash; p held the hop count at "
+        f"{ev['paused_hops'][0]} for 0.5 s, p resumed, q stopped run() after {report['wall_seconds']} s; "
+        f"{wall:.1f} s with the server's warm-up; report {json.dumps(report)} [{card_line()}]")
+    return {"report": report, "events": ev}
+
+
+def phase22_display(dev, served20a: dict) -> dict:
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.iir import three_band_scan
+    from openmeters_tpu_torch.ops.reassigned_columns import reassigned_columns
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+
+    counters = {c.__name__: c for c in (reassigned_sliding_hop, reassigned_columns, corr_dots_sums_ring, window_rows,
+                                        three_band_scan)}
+    t0 = time.perf_counter()
+    rendered = phase22a_render(dev, counters)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    live = phase22b_live(dev, served20a)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    full = phase22c_full(dev)
+    log(f"phase 22 in {time.perf_counter() - t0:.1f} s: 22a {t1 - t0:.1f} s, 22b {t2 - t1:.1f} s, 22c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"render": rendered, "live": live, "full": full}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2422,12 +2745,15 @@ def main() -> int:
     from openmeters_tpu_torch.engine import EngineConfig
 
     phase19_serving_card_vs_cpu(dev)
-    phase20_serving_s8192(dev, "phase 20a", EngineConfig(),
-                          ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows", "three_band_scan"))
+    served20a = phase20_serving_s8192(dev, "phase 20a", EngineConfig(),
+                                      ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows",
+                                       "three_band_scan"))
     torch.cuda.empty_cache()
     phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
     torch.cuda.empty_cache()
     phase21_cli(dev)
+    torch.cuda.empty_cache()
+    phase22_display(dev, served20a)
 
     def entry(name, source, replaces, n, k):
         extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms", "shapes")

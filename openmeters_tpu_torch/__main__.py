@@ -2,15 +2,18 @@
 ``__main__.py``)::
 
     python -m openmeters_tpu_torch analyze tone.wav [--settings settings.json]
+    python -m openmeters_tpu_torch render tone.wav out_dir/ [--settings ...]
     python -m openmeters_tpu_torch serve [--socket PATH --rates 44100,48000]
+    python -m openmeters_tpu_torch serve --tui --render-dir frames/ --fetch full
+    python -m openmeters_tpu_torch themes list|show|create|set-stop|delete
     python -m openmeters_tpu_torch settings --init settings.json
     python -m openmeters_tpu_torch selftest
     python -m openmeters_tpu_torch precompile
 
 Every command that computes runs on the card (``--device cuda``, the
 default) and raises where no card is present, unless given ``--device
-cpu``.  The display layers (``render``, ``themes``, ``serve --tui`` and
-``--render-dir``) are not ported yet (ROADMAP A11e) and raise.
+cpu``.  The meters are computed on the device; the display layers
+(``render``, ``serve --tui`` and ``--render-dir``) draw them on the host.
 """
 
 from __future__ import annotations
@@ -22,8 +25,6 @@ import sys
 
 import numpy as np
 import torch
-
-NOT_PORTED = "not ported yet: the display layers come with ROADMAP A11e"
 
 
 def _np(x) -> np.ndarray:
@@ -113,8 +114,10 @@ def cmd_serve(args) -> int:
         ingest_benchmark,
     )
 
-    if args.tui or args.render_dir:
-        raise NotImplementedError(f"serve --tui and --render-dir are {NOT_PORTED}")
+    if args.socket and (args.tui or args.render_dir):
+        print("--tui and --render-dir show one served stream: they do not combine with --socket",
+              file=sys.stderr)
+        return 2
     if args.watch_settings and not args.settings:
         print("--watch-settings requires --settings", file=sys.stderr)
         return 2
@@ -175,12 +178,43 @@ def cmd_serve(args) -> int:
         signal.signal(signal.SIGINT, _on_signal)
         if restored:  # said once a signal would be honoured
             print(f"# restored carry from {args.checkpoint}", file=sys.stderr, flush=True)
+    restore_term = None
+    if args.tui:
+        from openmeters_tpu_torch.tui import attach_key_controls, serve_tui_callback
+
+        # a paint at display rate on stderr; composed before the watcher
+        server.on_drain = serve_tui_callback(stream=args.tui_stream)
+        if sys.stdin.isatty():
+            # keys: p or space pauses, q quits, 1-6 toggle an analyzer live,
+            # s/S cycle the stream shown; cbreak so they arrive unbuffered
+            import termios
+            import tty
+
+            fd = sys.stdin.fileno()
+            saved = termios.tcgetattr(fd)
+            tty.setcbreak(fd)
+
+            def restore_term():
+                termios.tcsetattr(fd, termios.TCSADRAIN, saved)
+
+            attach_key_controls(server, view=server.on_drain.view)
     if args.watch_settings:
         attach_settings_watcher(server, args.settings)
+    if args.render_dir:
+        # every active visual to PNGs at display rate; the bulk panes
+        # (classic spectrogram, waveform, Lissajous cloud) need --fetch full
+        from openmeters_tpu_torch.render_live import attach_render_consumer
+
+        attach_render_consumer(
+            server, args.render_dir, stream=args.tui_stream, every=args.render_every,
+            theme=_resolve_theme(args.theme, args.themes_dir, args.settings),
+        )
     feeder = Feeder(server.transport, n_threads=args.feeder_threads, frames_per_push=1024)
     try:
         report = server.run(args.duration)
     finally:
+        if restore_term is not None:
+            restore_term()
         ok, failed = feeder.stop()
         if args.checkpoint:
             server.checkpoint(args.checkpoint)
@@ -191,6 +225,30 @@ def cmd_serve(args) -> int:
     report["feeder_pushes_failed"] = failed
     server.stats.log_summary()
     print(json.dumps(report))
+    return 0
+
+
+def cmd_render(args) -> int:
+    """Analyze a WAV on the device and rasterize every active visual to PNG
+    files on the host: the final snapshot, and the time-scrolling panes'
+    history across the whole file."""
+    from openmeters_tpu_torch.api import analyze
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.io.wav import read_wav
+    from openmeters_tpu_torch.persistence import SettingsHandle
+    from openmeters_tpu_torch.render import render_series
+
+    cfg = SettingsHandle.load_or_default(args.settings) if args.settings else EngineConfig()
+    samples, rate = read_wav(args.wav)
+    # the engine analyzes at the WAV's own rate; the renderer maps bins to Hz
+    # with that rate too
+    cfg = dataclasses.replace(cfg, sample_rate=rate)
+    snaps = analyze(samples, rate, cfg, device=_device(args))
+    if not snaps:
+        print("no complete hops in input", file=sys.stderr)
+        return 1
+    for path in render_series(snaps, cfg, args.out, width=args.width, height=args.height):
+        print(path)
     return 0
 
 
@@ -241,6 +299,93 @@ def cmd_settings(args) -> int:
     return 0
 
 
+def _resolve_theme(name, themes_dir, settings_path):
+    """The live theme: ``--theme`` if given, else the persisted ``ui.theme``
+    of ``--settings``, else the builtin default.  Resolved once, at start."""
+    from openmeters_tpu_torch.persistence import SettingsHandle
+    from openmeters_tpu_torch.themes import BUILTIN_THEMES, ThemeStore
+
+    if name is None and settings_path:
+        name = SettingsHandle.load_ui_or_default(settings_path).theme
+    if name is None or name == "default":
+        return BUILTIN_THEMES["default"]
+    return ThemeStore(themes_dir).load(name)
+
+
+def _parse_color(text: str):
+    """``R,G,B[,A]`` floats in [0, 1] as an RGBA list, or ``None``."""
+    try:
+        rgba = [float(x) for x in text.split(",")]
+    except ValueError:
+        return None
+    if len(rgba) == 3:
+        rgba.append(1.0)
+    if len(rgba) != 4 or not all(0.0 <= c <= 1.0 for c in rgba):
+        return None
+    return rgba
+
+
+def cmd_themes(args) -> int:
+    """Theme store operations: the headless palette editor
+    (ui/palette_editor.rs drives the same stop edits through a GUI)."""
+    from openmeters_tpu_torch.themes import BUILTIN_THEMES, VISUALS, Theme, ThemeStore
+    from openmeters_tpu_torch.views import GradientPalette
+
+    store = ThemeStore(args.dir)
+    if args.action in ("show", "set-stop", "delete") and not args.name:
+        print(f"themes {args.action} needs a theme name")
+        return 1
+    if args.action == "set-stop" and args.visual not in VISUALS:
+        print(f"set-stop needs a visual out of {', '.join(VISUALS)}")
+        return 1
+    if args.action == "list":
+        for name in store.list_themes():
+            print(f"{name}{' (builtin)' if name in BUILTIN_THEMES else ''}")
+        return 0
+    if args.action == "show":
+        theme = store.load(args.name)
+        doc = {
+            v: {"stops": p.colors.tolist(), "positions": p.positions.tolist(), "spreads": p.spreads.tolist()}
+            for v, p in sorted(theme.palettes.items())
+        }
+        print(json.dumps({"name": theme.name, "palettes": doc}, indent=2))
+        return 0
+    if args.action == "delete":
+        ok = store.delete(args.name)
+        print(f"{'deleted' if ok else 'cannot delete'} {args.name}")
+        return 0 if ok else 1
+    if args.action == "create":
+        base = store.load(args.base)
+        saved = store.save(Theme(args.name or base.name, palettes=dict(base.palettes)), name=args.name)
+        print(f"saved theme {saved}")
+        return 0
+    # set-stop
+    theme = store.load(args.name)
+    palette = theme.palette(args.visual)
+    colors = np.array(palette.colors, np.float32)
+    positions = np.array(palette.positions, np.float32)
+    spreads = np.array(palette.spreads, np.float32)
+    i = args.stop
+    if not 0 <= i < len(colors):
+        print(f"stop {i} out of range (palette has {len(colors)} stops)")
+        return 1
+    if args.color:
+        rgba = _parse_color(args.color)
+        if rgba is None:
+            print(f"--color {args.color}: want R,G,B or R,G,B,A, each in [0, 1]")
+            return 1
+        colors[i] = rgba
+    if args.position is not None and 0 < i < len(colors) - 1:
+        positions[i] = args.position
+    if args.spread is not None:
+        spreads[i] = args.spread
+    palettes = dict(theme.palettes)
+    palettes[args.visual] = GradientPalette.make(colors, positions, spreads)
+    saved = store.save(Theme(args.name, palettes=palettes), name=args.name)
+    print(f"saved theme {saved}")
+    return 0
+
+
 def cmd_selftest(args) -> int:
     """Tiny end-to-end smoke: tone in, sane meters out."""
     from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig
@@ -261,10 +406,6 @@ def cmd_selftest(args) -> int:
     return 0 if ok else 1
 
 
-def cmd_not_ported(args) -> int:
-    raise NotImplementedError(f"{args.cmd} is {NOT_PORTED}")
-
-
 def main(argv=None) -> int:
     from openmeters_tpu_torch.tracing import init_tracing
 
@@ -282,6 +423,15 @@ def main(argv=None) -> int:
     pa.add_argument("--compact", action="store_true")
     device_arg(pa)
     pa.set_defaults(fn=cmd_analyze)
+
+    pr = sub.add_parser("render", help="render a WAV's meters to PNGs")
+    pr.add_argument("wav")
+    pr.add_argument("out", help="output directory for PNG frames")
+    pr.add_argument("--settings", help="settings JSON (lossy schema)")
+    pr.add_argument("--width", type=int, default=960)
+    pr.add_argument("--height", type=int, default=540)
+    device_arg(pr)
+    pr.set_defaults(fn=cmd_render)
 
     pv = sub.add_parser("serve", help="run the serving loop (synthetic feed, or producers on a socket)")
     pv.add_argument("--settings", help="serve a persisted settings JSON (lossy schema) instead of a named --config")
@@ -301,8 +451,15 @@ def main(argv=None) -> int:
     pv.add_argument("--socket", help="unix socket path: serve external producers (identity routing, "
                     "per-rate buckets) instead of the synthetic feeder")
     pv.add_argument("--rates", default="48000", help="comma-separated sample-rate buckets for --socket")
-    pv.add_argument("--tui", action="store_true", help=f"live terminal meters ({NOT_PORTED})")
-    pv.add_argument("--render-dir", help=f"rasterize the visuals to PNGs ({NOT_PORTED})")
+    pv.add_argument("--tui", action="store_true", help="live terminal meters at display rate (stderr)")
+    pv.add_argument("--tui-stream", type=int, default=0, help="stream shown by --tui and --render-dir")
+    pv.add_argument("--render-dir", help="rasterize every active visual to PNGs in this directory at "
+                    "display rate (bulk panes need --fetch full)")
+    pv.add_argument("--render-every", type=float, default=0.5,
+                    help="seconds between rendered frames for --render-dir")
+    pv.add_argument("--theme", help="theme for --render-dir (default: the persisted ui.theme from "
+                    "--settings, else the builtin default)")
+    pv.add_argument("--themes-dir", default="themes", help="theme store directory (default: themes/)")
     pv.add_argument("--ingest-only", action="store_true", help="host-only ingest benchmark (no device work)")
     pv.add_argument("--checkpoint", help="carry checkpoint path: restore on start if it exists; save on "
                     "exit and on SIGTERM/SIGINT")
@@ -323,14 +480,21 @@ def main(argv=None) -> int:
     ps.add_argument("--init", required=True, help="write default settings JSON")
     ps.set_defaults(fn=cmd_settings)
 
+    pth = sub.add_parser("themes", help="theme store: list/show/create/edit palettes (headless palette editor)")
+    pth.add_argument("action", choices=["list", "show", "create", "set-stop", "delete"])
+    pth.add_argument("name", nargs="?", help="theme name")
+    pth.add_argument("visual", nargs="?", help="visual whose palette to edit (set-stop)")
+    pth.add_argument("--dir", default="themes", help="theme store directory (default: themes/)")
+    pth.add_argument("--base", default="default", help="base theme for create (default: default)")
+    pth.add_argument("--stop", type=int, default=0, help="stop index for set-stop")
+    pth.add_argument("--color", help="R,G,B[,A] floats in [0,1] for set-stop")
+    pth.add_argument("--position", type=float, help="interior stop position in (0,1) for set-stop")
+    pth.add_argument("--spread", type=float, help="stop spread for set-stop")
+    pth.set_defaults(fn=cmd_themes)
+
     pt = sub.add_parser("selftest", help="end-to-end smoke test")
     device_arg(pt)
     pt.set_defaults(fn=cmd_selftest)
-
-    for name in ("render", "themes"):
-        px = sub.add_parser(name, help=NOT_PORTED)
-        px.add_argument("rest", nargs=argparse.REMAINDER)
-        px.set_defaults(fn=cmd_not_ported)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -59,6 +59,28 @@ def flush_denormal_state(state: torch.Tensor, threshold: float = 1.0e-20):
     return torch.where(torch.abs(state) < threshold, torch.zeros_like(state), state)
 
 
+def iir_df2t_scan(x, state, b, a):
+    """Generic order-N direct-form-II-transposed IIR over time-major ``x
+    [T, lanes...]``, one sample at a time.
+
+    ``b``: N+1 numerator taps; ``a``: N feedback taps (a1..aN, a0
+    normalized to 1); ``state``: ``[N, lanes...]``.  Returns ``(y,
+    new_state)``.  The recurrence of the reference's ``k_weighted``
+    (loudness/processor.rs:153-162); no analyzer calls it.
+    """
+    n = len(a)
+    if len(b) != n + 1:
+        raise ValueError(f"{len(b)} numerator taps for {n} feedback taps; want {n + 1}")
+    z = list(state.unbind(0))
+    ys = []
+    for t in range(x.shape[0]):
+        xt = x[t]
+        y = b[0] * xt + z[0]
+        z = [b[i + 1] * xt - a[i] * y + (z[i + 1] if i + 1 < n else 0.0) for i in range(n)]
+        ys.append(y)
+    return torch.stack(ys), torch.stack(z)
+
+
 def _sos_state_space(sections):
     """Cascade state-space ``(A, B, C, D)`` in float64 for DF2T sections."""
     a_c = None

@@ -89,6 +89,11 @@ def _to_numpy(snap):
     return type(snap)(*(t.cpu().numpy() for t in snap))
 
 
+def _rows(snap, stream: int | None):
+    """``snap`` whole, or only the rows of ``stream`` (a leading axis of 1)."""
+    return snap if stream is None else type(snap)(*(t[stream : stream + 1] for t in snap))
+
+
 @dataclasses.dataclass
 class _Pipeline:
     """One engine config, warmed, and its meter layout."""
@@ -620,24 +625,27 @@ class MeterServer:
         self._last_layout = self._packed_layout
         return self.last_meters()
 
-    def fetch_osc_traces(self, as_numpy: bool = True):
+    def fetch_osc_traces(self, as_numpy: bool = True, stream: int | None = None):
         """The oscilloscope's capture windows read from the live carry (the
-        display's clock, not the hop's); ``None`` without an oscilloscope."""
+        display's clock, not the hop's); ``None`` without an oscilloscope.
+        With ``stream``, only that stream's rows are copied (a leading axis
+        of 1): what a display of one stream reads."""
         if "oscilloscope" not in self.engine.analyzers:
             return None
-        snap = self.engine.extract_oscilloscope(self.carry)
+        snap = _rows(self.engine.extract_oscilloscope(self.carry), stream)
         return _to_numpy(snap) if as_numpy else snap
 
-    def fetch_spectrum(self, as_numpy: bool = True):
+    def fetch_spectrum(self, as_numpy: bool = True, stream: int | None = None):
         """The newest spectrum snapshot at the display's clock: the one held
         from the last spectrum hop of a cadenced spectrum, else emitted from
         the live carry's averaging state (no transform); ``None`` without a
-        spectrum."""
+        spectrum.  ``stream`` as for :meth:`fetch_osc_traces`."""
         if "spectrum" not in self.engine.analyzers:
             return None
         snap = self._dev_spectrum_snap
         if snap is None:
             snap = self.engine.analyzers["spectrum"].emit(self.carry["spectrum"])
+        snap = _rows(snap, stream)
         return _to_numpy(snap) if as_numpy else snap
 
     def last_meters(self) -> dict[str, np.ndarray] | None:

@@ -2,7 +2,8 @@
 its plain version, the card against the CPU, or the port against the JAX
 package.  First the reassigned spectrogram's, then the oscilloscope's,
 then the spectrum's, the stereometer's and the waveform's, then a whole
-engine hop's, a server's fetched meters and the CLI's ``analyze`` output.
+engine hop's, a server's fetched meters, the CLI's ``analyze`` output and
+the images that ``render`` draws.
 
 Reassigned spectrogram columns.
 
@@ -560,3 +561,62 @@ def check_analyze(ours: dict, ref: dict, where: str = "") -> dict:
         if not err <= bar:
             raise AssertionError(f"{where}: {section}.{field} {a} against {b} (bar {bar}{' relative' if relative else ''})")
     return out
+
+
+# -- rendered images ---------------------------------------------------------------
+
+# Two renders of one recording from meters computed on two paths (the card
+# against the CPU, the port against the JAX package) part where a meter's
+# difference moves a drawn feature across a pixel.  A pixel is off where a
+# channel differs by more than PIXEL_LEVELS of 255; a pane is held to at
+# most PIXEL_SHARE of its pixels off and a mean difference of MEAN_LEVELS.
+# Readings (960 x 540 panes, tones over a noise floor 40 dB down): the card
+# against the CPU, ``render`` of 3 s under the literal EngineConfig() at 48
+# kHz and of EngineConfig.at_rate(44100) (chip_smoke.py phase 22a, NVIDIA
+# H100 80GB HBM3, 700 W): 2.18e-4 and 7.1e-5 of the reassigned
+# spectrogram's pixels off, mean 0.034 and 0.0096 levels (splats of bins
+# far below their column's peak, whose reassignment no bar holds, land a
+# row apart); every other pane none off, at most 4 levels, mean <= 0.015.
+# The port against the JAX package on the CPU, the same config over 1 s at
+# 48 kHz: 1.6e-4 off, mean 0.018; the other panes none off.  The bars sit
+# 9x and 7x above the largest readings.  A pane drawn from a signal with
+# no noise floor shows the transforms' rounding (-100 to -140 dB) in the
+# reassigned splats, which parts two f32 paths: tests/test_render.py's
+# pure 440 Hz tone (8 kHz, 256/64, 120 x 80), the port against the JAX
+# package, 3.6e-2 of the reassigned pane's pixels off, mean 1.02 levels;
+# the classic pane none off.  With the points below SPLAT_FLOOR_DB of
+# their column's peak left out of both (``point_valid`` cleared), none
+# off; at -110 dB 5.2e-4, at -120 dB 1.2e-2
+# (tests/test_torch_render.py::test_render_series_pure_tone_within_pixel_bar_of_jax
+# records each pane's reading).
+PIXEL_LEVELS = 8
+PIXEL_SHARE = 2e-3
+MEAN_LEVELS = 0.25
+SPLAT_FLOOR_DB = -100.0
+
+
+def image_errors(ours, ref) -> dict:
+    """``{"off_share", "mean_levels", "max_levels"}`` of one u8 image
+    ``[h, w, c]`` against another of the same shape (``ValueError`` if the
+    shapes differ)."""
+    import numpy as np
+
+    a, b = np.asarray(ours), np.asarray(ref)
+    if a.shape != b.shape:
+        raise ValueError(f"image shapes differ: {a.shape} against {b.shape}")
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+    return {
+        "off_share": float((d > PIXEL_LEVELS).mean()),
+        "mean_levels": float(d.mean()),
+        "max_levels": int(d.max()),
+    }
+
+
+def check_image(errors: dict, where: str = "") -> None:
+    """Raise ``AssertionError`` if ``errors`` (from :func:`image_errors`)
+    break the pixel bar."""
+    if not errors["off_share"] <= PIXEL_SHARE:
+        raise AssertionError(f"{where}: {errors['off_share']} of the pixels off by more than "
+                             f"{PIXEL_LEVELS} levels (bar {PIXEL_SHARE})")
+    if not errors["mean_levels"] <= MEAN_LEVELS:
+        raise AssertionError(f"{where}: mean difference {errors['mean_levels']} levels (bar {MEAN_LEVELS})")

@@ -1,13 +1,15 @@
-"""The chip smoke script's SASS reader, on the CPU: ``chip_smoke.py``
-phase 15 counts the instructions a sample that the crossover kernel's
-sample loops issue (``three_band_issue``) and works out the serial chain's
-floor from them (``three_band_chain_floor_ms``).  Here both read synthetic
-``cuobjdump -sass`` text, so neither ``nvcc`` nor a card is needed.
+"""The chip smoke script's helpers, on the CPU: ``chip_smoke.py`` phase 15
+counts the instructions a sample that the crossover kernel's sample loops
+issue (``three_band_issue``) and works out the serial chain's floor from
+them (``three_band_chain_floor_ms``), here from synthetic ``cuobjdump
+-sass`` text, so neither ``nvcc`` nor a card is needed; phase 22a holds the
+card's rendered panes against the CPU's (``compare_renders``).
 """
 
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -55,3 +57,65 @@ def test_three_band_issue_reads_sass(monkeypatch, warps):
     floor = chip_smoke.three_band_chain_floor_ms(1024, 4096, issue[(2, True)], 2000.0, 132)
     # 128 tiles on 132 SMs: each warp's own chain bounds it, 1024 samples at 2 GHz
     assert floor == pytest.approx(1024 * want / 2e6)
+
+
+def _panes(directory, images: dict) -> None:
+    from openmeters_tpu_torch.render import write_png
+
+    directory.mkdir()
+    for name, img in images.items():
+        write_png(directory / f"{name}.png", img)
+
+
+def _images(seed: int = 3) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"spectrum": rng.integers(0, 256, (54, 96, 3), dtype=np.uint8),
+            "loudness": rng.integers(0, 256, (54, 32, 3), dtype=np.uint8)}
+
+
+@pytest.mark.parametrize("change", ["identical", "within_bar"])
+def test_compare_renders_passes_images_within_the_bar(tmp_path, change):
+    """Identical panes pass, and so do panes with fewer pixels off than the
+    bar's share; the errors come back by pane."""
+    from openmeters_tpu_torch.utils.parity import PIXEL_LEVELS, PIXEL_SHARE
+
+    ref = _images()
+    ours = {k: v.copy() for k, v in ref.items()}
+    if change == "within_bar":
+        img = ours["spectrum"]
+        img.reshape(-1, 3)[: int(PIXEL_SHARE * img.shape[0] * img.shape[1])] ^= 0x40
+    _panes(tmp_path / "card", ours)
+    _panes(tmp_path / "cpu", ref)
+    errors = chip_smoke.compare_renders(tmp_path / "card", tmp_path / "cpu")
+    assert set(errors) == {"spectrum", "loudness"}
+    if change == "identical":
+        assert all(e == {"off_share": 0.0, "mean_levels": 0.0, "max_levels": 0} for e in errors.values())
+    else:
+        assert 0 < errors["spectrum"]["off_share"] <= PIXEL_SHARE < 1 and errors["spectrum"]["max_levels"] > PIXEL_LEVELS
+
+
+@pytest.mark.parametrize("fault", ["off_share", "mean", "missing_pane", "shape"])
+def test_compare_renders_flags_images_off_the_bar(tmp_path, fault):
+    """A pane with more pixels off than the bar's share, one whose every
+    pixel is off by more than the mean bar (none by more than the level
+    bar), a pane written on one side only, or panes of other sizes: each
+    raises."""
+    from openmeters_tpu_torch.utils.parity import MEAN_LEVELS, PIXEL_LEVELS, PIXEL_SHARE
+
+    ref = _images()
+    ours = {k: v.copy() for k, v in ref.items()}
+    img = ours["spectrum"]
+    if fault == "off_share":
+        n = int(2 * PIXEL_SHARE * img.shape[0] * img.shape[1]) + 1
+        img.reshape(-1, 3)[:n] ^= 0x80
+    elif fault == "mean":
+        step = min(PIXEL_LEVELS, int(MEAN_LEVELS) + 1)
+        ours["spectrum"] = np.where(img < 128, img + step, img - step).astype(np.uint8)
+    elif fault == "missing_pane":
+        del ours["loudness"]
+    else:
+        ours["spectrum"] = img[:-1]
+    _panes(tmp_path / "card", ours)
+    _panes(tmp_path / "cpu", ref)
+    with pytest.raises((AssertionError, ValueError)):
+        chip_smoke.compare_renders(tmp_path / "card", tmp_path / "cpu")

@@ -132,9 +132,107 @@ def test_precompile_reports_build_and_warm_up(capsys):
 @pytest.mark.parametrize("argv", [["render", "in.wav", "out"], ["themes", "list"], ["serve", "--tui"],
                                   ["serve", "--render-dir", "frames"],
                                   ["serve", "--socket", "s.sock", "--render-dir", "frames"]])
-def test_display_layers_raise_naming_the_slice(argv):
-    with pytest.raises(NotImplementedError, match="A11e"):
-        tcli.main([*argv, "--device", "cpu"] if argv[0] == "serve" else argv)
+def test_display_layers_raise_naming_the_slice(argv, tmp_path, monkeypatch, capsys):
+    """The display surfaces are ported: none raises ``NotImplementedError``.
+    ``render`` computes on the card by default (and raises where none is
+    present); ``themes`` runs; ``serve --tui`` and ``--render-dir`` serve
+    on the CPU when asked; with ``--socket`` they exit 2."""
+    monkeypatch.chdir(tmp_path)
+    if argv[0] == "render":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present")
+        write_wav("in.wav", stereo_audio(1, 4096, 3)[0], RATE)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(argv)
+        return
+    if argv[0] == "themes":
+        assert tcli.main(argv) == 0
+        assert "heat (builtin)" in capsys.readouterr().out
+        return
+    write_json_atomic("tiny.json", encode_settings(tiny_engine()))
+    rc = tcli.main([*argv, "--device", "cpu", "--streams", "2", "--duration", "4.0", "--settings", "tiny.json"])
+    if "--socket" in argv:
+        assert rc == 2 and "--socket" in capsys.readouterr().err
+        return
+    assert rc == 0 and last_json(capsys.readouterr().out)["hops"] > 0
+    if "--render-dir" in argv:
+        assert (tmp_path / "frames" / "loudness.png").exists()
+
+
+def test_themes_set_stop_rejects_a_bad_color(tmp_path, capsys):
+    """``themes set-stop --color`` takes 3 or 4 components in [0, 1]: other
+    input returns 1 with a message and leaves the theme file as it was;
+    valid input writes the JAX CLI's file."""
+    d = str(tmp_path / "themes")
+    assert tcli.main(["themes", "create", "mine", "--dir", d]) == 0
+    before = (tmp_path / "themes" / "mine.json").read_bytes()
+    for color in ("0.5,0.1", "0.5,0.1,0.2,0.3,0.4", "1.5,0,0", "-0.1,0,0", "a,b,c", "nan,0,0"):
+        capsys.readouterr()
+        assert tcli.main(["themes", "set-stop", "mine", "spectrum", "--dir", d, f"--color={color}"]) == 1
+        assert f"--color {color}" in capsys.readouterr().out
+        assert (tmp_path / "themes" / "mine.json").read_bytes() == before
+    jd = str(tmp_path / "jax")
+    argv = ["themes", "set-stop", "mine", "spectrum", "--stop", "1", "--color", "0.25,0.5,1"]
+    for main, where in ((tcli.main, d), (jcli.main, jd)):
+        assert main(["themes", "create", "mine", "--dir", where]) == 0
+        assert main([*argv, "--dir", where]) == 0
+    assert (tmp_path / "themes" / "mine.json").read_bytes() == (tmp_path / "jax" / "mine.json").read_bytes()
+
+
+def test_themes_parses_as_the_jax_cli(monkeypatch):
+    """``themes`` computes nothing on a device: its options are the JAX
+    CLI's, into the same values, and neither CLI takes ``--device``."""
+    argv = ["themes", "set-stop", "mine", "spectrum", "--dir", "d", "--base", "heat", "--stop", "1",
+            "--color", "0.1,0.2,0.3", "--position", "0.5", "--spread", "2.0"]
+    parsed = []
+    for cli in (tcli, jcli):
+        monkeypatch.setattr(cli, "cmd_themes", lambda a: parsed.append({k: v for k, v in vars(a).items() if k != "fn"})
+                            or 0)
+        assert cli.main(argv) == 0
+        with pytest.raises(SystemExit) as e:
+            cli.main(["themes", "list", "--device", "cpu"])
+        assert e.value.code == 2
+    assert parsed[0] == parsed[1]
+
+
+@pytest.mark.parametrize("flag", [["--tui"], ["--render-dir", "frames"]])
+def test_serve_socket_refuses_the_display_flags(flag, capsys):
+    """``--tui`` and ``--render-dir`` show one stream of the synthetic feed;
+    with ``--socket`` the port says so and exits 2 (the JAX CLI ignores
+    them without a word)."""
+    assert tcli.main(["serve", "--socket", "x.sock", *flag, "--device", "cpu"]) == 2
+    assert "do not combine with --socket" in capsys.readouterr().err
+
+
+def test_serve_display_flags_parse_and_draw(tmp_path, capsys):
+    """Every display flag of the JAX CLI's ``serve`` parses in the port's,
+    and a short served run on the CPU paints the TUI and writes the panes
+    in the chosen theme (a stored one, from ``--themes-dir``)."""
+    themes, settings = str(tmp_path / "themes"), str(tmp_path / "tiny.json")
+    assert tcli.main(["themes", "create", "mine", "--base", "heat", "--dir", themes]) == 0
+    write_json_atomic(settings, encode_settings(tiny_engine(waveform=WaveformConfig(track_history=True))))
+    frames = tmp_path / "frames"
+    # 4 s: a fetch drains every sixth hop, and a loaded CPU may serve only a
+    # few hops a second
+    argv = ["serve", "--device", "cpu", "--streams", "2", "--duration", "4.0", "--settings", settings,
+            "--fetch", "full", "--tui",
+            "--tui-stream", "1", "--render-dir", str(frames), "--render-every", "0.1", "--theme", "mine",
+            "--themes-dir", themes]
+    capsys.readouterr()
+    assert tcli.main(argv) == 0
+    out = capsys.readouterr()
+    assert last_json(out.out)["hops"] > 0
+    assert "stream #1" in out.err and "LUFS" in out.err
+    written = {p.name for p in frames.glob("*.png")}  # the bulk panes once their histories fill
+    assert "loudness.png" in written and written <= {"loudness.png", "spectrogram.png", "waveform.png"}
+    # both CLIs parse the same flags into the same values
+    parsed = []
+    for cli, args in ((tcli, argv), (jcli, [a for a in argv if a not in ("--device", "cpu")])):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cli, "cmd_serve", lambda a: parsed.append(vars(a)) or 0)
+            assert cli.main(args) == 0
+    keys = ("tui", "tui_stream", "render_dir", "render_every", "theme", "themes_dir", "fetch")
+    assert [{k: p[k] for k in keys} for p in parsed] == [{k: parsed[1][k] for k in keys}] * 2
 
 
 # -- serve with the feeder: checkpoint, restore, SIGTERM ------------------------------

@@ -678,3 +678,89 @@ def test_cli_analyze_card_matches_cpu(card, tmp_path, capsys):
         assert main(["analyze", wav, "--settings", settings, "--compact", "--device", device]) == 0
         outs.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
     check_analyze(*outs, "card against cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reassigned", [False, True], ids=["classic", "reassigned"])
+def test_render_series_cuda_snapshots_equal_their_cpu_copies(card, tmp_path, reassigned):
+    """``render_series`` of a series on the card (stream 1 of 2) writes the
+    same bytes as of the series' ``.cpu()`` copies: ``host_series`` moves
+    what is read in one copy, and the rasterizers see the same numpy."""
+    from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig
+    from openmeters_tpu_torch.api import analyze
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.render import render_series
+
+    cfg = EngineConfig(spectrogram=SpectrogramConfig(fft_size=1024, hop_size=256, use_reassignment=reassigned))
+    series = analyze(_stereo_audio(2, 24_000, seed=23), 48_000.0, cfg, device=card)
+    copies = [{k: type(v)(*(x.cpu() for x in v)) for k, v in hop.items()} for hop in series]
+    out = {}
+    for name, s in (("card", series), ("cpu", copies)):
+        paths = render_series(s, cfg, tmp_path / name, stream=1, width=160, height=90)
+        out[name] = {p.rsplit("/", 1)[-1]: open(p, "rb").read() for p in paths}
+    assert len(out["card"]) == 6 and out["card"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_tui_keys_drive_a_card_server(card):
+    """``attach_key_controls`` on a ``MeterServer`` on the card: ``2``
+    toggles the spectrogram off and on (each engine warmed on the card and
+    adopted at a hop boundary, the stash restoring its settings), ``p``
+    pauses and resumes, and the TUI paints the served meters."""
+    import contextlib
+    import io
+    import os
+    import time
+
+    from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramConfig
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.tui import attach_key_controls, serve_tui_callback
+
+    engine = EngineConfig(channels=2, spectrogram=SpectrogramConfig(fft_size=512, hop_size=128,
+                                                                    use_reassignment=False),
+                          spectrum=None, oscilloscope=None, stereometer=None, waveform=None)
+    server = MeterServer(ServeConfig(n_streams=4, channels=2, engine=engine, realtime=False, fetch="meters",
+                                     fetch_every=1), device=card)
+    server.on_drain = serve_tui_callback(stream=2, min_interval=0.0)
+    r, w = os.pipe()
+    rf = os.fdopen(r, "rb", buffering=0)
+    audio = _stereo_audio(4, 800 * 256, seed=29)
+    i = [0]
+    paint = io.StringIO()
+
+    def hops_until(pred, bound=600):
+        for _ in range(bound):
+            for st in range(4):
+                server.transport.push_pcm(st, audio[st, i[0] * 256 : (i[0] + 1) * 256], int(i[0] * 256 / 48e3 * 1e9))
+            i[0] += 1
+            with contextlib.redirect_stderr(paint):
+                server.on_tick(server)
+                server.advance()
+            if pred():
+                return True
+            if server.reconfig_pending:
+                time.sleep(0.02)
+        return False
+
+    try:
+        attach_key_controls(server, source=rf, view=server.on_drain.view)
+        os.write(w, b"2")
+        assert hops_until(lambda: not server.reconfig_pending and "spectrogram" not in server.engine.analyzers)
+        os.write(w, b"2")
+        assert hops_until(lambda: not server.reconfig_pending and "spectrogram" in server.engine.analyzers)
+        assert server.engine.config.spectrogram.fft_size == 512
+        leaves = torch.utils._pytree.tree_leaves(server.carry["spectrogram"])
+        assert {t.device.type for t in leaves if isinstance(t, torch.Tensor)} == {"cuda"}
+        os.write(w, b"p")
+        assert hops_until(lambda: server.paused, bound=3)
+        hops = server.stats.hops
+        hops_until(lambda: False, bound=5)
+        assert server.stats.hops == hops
+        os.write(w, b"p")
+        assert hops_until(lambda: not server.paused and server.stats.hops > hops, bound=5)
+    finally:
+        rf.close()
+        os.close(w)
+        server.close()
+    assert "stream #2" in paint.getvalue() and "LUFS" in paint.getvalue()

@@ -340,6 +340,11 @@ def test_port_imports_no_jax():
         "import openmeters_tpu_torch.ops.corr, openmeters_tpu_torch.ops.rows\n"
         "import openmeters_tpu_torch.__main__, openmeters_tpu_torch.persistence\n"
         "import openmeters_tpu_torch.views, openmeters_tpu_torch.ingest.runtime\n"
+        "import tempfile\n"
+        "from openmeters_tpu_torch import render, render_live, themes, tui\n"
+        "pngs = render.render_series(full, EngineConfig(), tempfile.mkdtemp(), width=64, height=48)\n"
+        "assert len(pngs) == 5 and themes.ThemeStore(tempfile.mkdtemp()).load('heat').name == 'heat'\n"
+        "assert tui.TuiView().render({}, 0.0) == '' and render_live.attach_render_consumer\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'openmeters_tpu.'))\n"
         "        or m == 'openmeters_tpu']\n"
         "print(json.dumps({'hops': len(out), 'mods': mods}))\n"

@@ -217,6 +217,80 @@ def test_lifted_remainder_block_matches():
     assert np.max(np.abs(ts.numpy() - ss)) <= 1e-5 * np.max(np.abs(ss))
 
 
+def _rbj_sections(kind, freq: float, sections: int):
+    """``(b, a)`` of ``sections`` RBJ biquads at 48 kHz multiplied out into
+    one direct form."""
+    c = tiir.biquad_rbj(kind, 48_000.0, freq)
+    b, a = np.ones(1), np.ones(1)
+    for _ in range(sections):
+        b, a = np.convolve(b, c[:3]), np.convolve(a, [1.0, *c[3:]])
+    return tuple(b.tolist()), tuple(a[1:].tolist())
+
+
+DF2T_FILTERS = {
+    1: ((0.05, 0.0), (-0.95,)),  # one pole at 0.95
+    2: _rbj_sections(tiir.FilterKind.LOW_PASS, 8000.0, 1),
+    4: _rbj_sections(tiir.FilterKind.LOW_PASS, 8000.0, 2),
+}
+
+
+def _df2t_inputs(order: int, zero_state: bool = False):
+    rng = np.random.default_rng(40 + order)
+    x = rng.standard_normal((1500, 3, 2)).astype(np.float32)
+    state = np.zeros((order, 3, 2), np.float32) if zero_state else (0.1 * rng.standard_normal((order, 3, 2)))
+    return x, state.astype(np.float32)
+
+
+@pytest.mark.parametrize("order", [1, 2, 4])
+def test_iir_df2t_scan_matches(order):
+    """``iir_df2t_scan`` against the JAX package's on ``[T, 3, 2]`` lanes
+    from a non-zero state (order 1: a pole at 0.95; 2 and 4: one and two
+    RBJ low-pass sections at 8 kHz multiplied out): output and final state
+    within 1e-6 of the output's scale."""
+    b, a = DF2T_FILTERS[order]
+    x, state = _df2t_inputs(order)
+    jy, js = jiir.iir_df2t_scan(jnp.asarray(x), jnp.asarray(state), b, a)
+    ty, ts = tiir.iir_df2t_scan(torch.from_numpy(x), torch.from_numpy(state), b, a)
+    assert ty.shape == x.shape and ts.shape == state.shape and ty.dtype == torch.float32
+    scale = float(np.abs(np.asarray(jy)).max())
+    assert float(np.abs(ty.numpy() - np.asarray(jy)).max()) <= 1e-6 * scale
+    assert float(np.abs(ts.numpy() - np.asarray(js)).max()) <= 1e-6 * scale
+    with pytest.raises(ValueError, match="numerator taps"):
+        tiir.iir_df2t_scan(torch.from_numpy(x), torch.from_numpy(state), b[:-1], a)
+
+
+@pytest.mark.parametrize("case", ["highpass_200hz", "k_weighting"])
+def test_iir_df2t_scan_ill_conditioned(case):
+    """Poles near z = 1 amplify each package's f32 rounding: from a
+    non-zero state the two part by 1.2e-5 of the output's scale (an RBJ
+    high-pass at 200 Hz) and 6.7e-3 (BS.1770's K-weighting as one
+    fourth-order direct form), and sit 3.4e-5 / 3.8e-5 and 2.5e-2 / 2.6e-2
+    (port / JAX) from the same recurrence in float64.  The port is held to
+    at most 1.5 times the JAX package's distance from float64, output and
+    state; and, from a zero state, to the JAX package's own K-weighting bar:
+    mean square within 2e-3 dB of ``tests/golden.py``."""
+    if case == "k_weighting":
+        bb, aa = jweighting.k_weighting_ba(48_000.0)
+        b, a = tuple(bb.tolist()), tuple(aa[1:].tolist())
+    else:
+        b, a = _rbj_sections(tiir.FilterKind.HIGH_PASS, 200.0, 1)
+    x, state = _df2t_inputs(len(a))
+    jy, js = jiir.iir_df2t_scan(jnp.asarray(x), jnp.asarray(state), b, a)
+    ty, ts = tiir.iir_df2t_scan(torch.from_numpy(x), torch.from_numpy(state), b, a)
+    ey, es = tiir.iir_df2t_scan(torch.from_numpy(x).double(), torch.from_numpy(state).double(), b, a)
+    for ours, ref, exact in ((ty, jy, ey), (ts, js, es)):
+        exact = exact.numpy()
+        assert np.abs(ours.numpy() - exact).max() <= 1.5 * np.abs(np.asarray(ref, np.float64) - exact).max()
+    if case == "k_weighting":
+        import golden
+
+        sig = np.random.default_rng(7).standard_normal(2048).astype(np.float32)
+        ref = golden.k_weight(sig, 48_000.0)
+        got, _ = tiir.iir_df2t_scan(torch.from_numpy(sig[:, None]), torch.zeros((4, 1)), b, a)
+        ms = np.mean(got.numpy()[:, 0].astype(np.float64) ** 2)
+        assert abs(10 * np.log10(ms / np.mean(ref**2))) < 2e-3
+
+
 def test_flush_denormal_state():
     x = np.array([1e-21, -1e-21, 1e-19, 0.0, -2.0], np.float32)
     np.testing.assert_array_equal(

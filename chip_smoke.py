@@ -128,7 +128,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``fetch="full"`` at S=256: every pane written, and keys on a pipe
     (``2`` toggles the spectrogram off and back, each swap warmed while
     serving and adopted at an advance's start; ``p`` pauses and resumes;
-    ``q`` stops ``run()``).
+    ``q`` stops ``run()``);
+23. the stream mesh (``engine/sharding.py``): (a) the flagship at S=8192
+    through ``sharded_step`` over ``make_mesh()`` (every card of the
+    machine) against the unsharded step on the card, 200 hops with resets
+    at hops 60 and 140, held by the bars of ``utils/parity.py``, the
+    bit-equal leaves counted, B1a launched once a shard a hop; (b) the
+    literal ``EngineConfig()`` at two channels, S=64 over the two-shard
+    one-card mesh ``StreamMesh([cuda:0, cuda:0])``, 150 hops of phase 12's
+    and phase 16's audio with two streams of shard 1 reset at hop 90,
+    against the unsharded step on the card and the same two shards on the
+    CPU (stepped each hop from the card shards' state) by the bars, every
+    replicated host scalar equal across the shards
+    and to the unsharded carry's at every hop, B2, B4, B7 and
+    ``three_band`` each launched once a shard a hop; then ``gather_carry``
+    -> ``save_state`` -> ``load_state`` onto a one-shard mesh, 30 hops on
+    against the uninterrupted two shards; (c) ``MeterServer`` at S=8192
+    over the two-shard one-card mesh, the literal default and the flagship
+    as 20a and 20b (report, host ms by stage, busy share, peak memory,
+    launches) beside 20a's and 20b's of this run, and the server's
+    leaf-by-leaf join of the shards' meter vectors against
+    ``join_by_leaf``'s.
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -1866,12 +1886,14 @@ def phase19_serving_card_vs_cpu(dev, s: int = 8, advances: int = 150) -> None:
     )
 
 
-def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
+def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None, check_join=None) -> dict:
     """``MeterServer`` at S=8192 stereo streams on the card, ``fetch="meters"``
     every sixth hop, with the C++ ``Feeder`` (4 threads) pushing flat out
     under backpressure: 40 warm-up advances, then 200 timed (the clock
     stopped after ``close()`` has drained every fetch), counting the
-    launches of ``expect``'s kernels, then a 20-advance profile."""
+    launches of ``expect``'s kernels, then a 20-advance profile.  With
+    ``mesh`` the server cuts its streams over it, and ``check_join(server)``
+    runs after the profile."""
     from openmeters_tpu_torch.ingest import Feeder
     from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
     from openmeters_tpu_torch.ops.iir import three_band_scan
@@ -1886,7 +1908,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
     ring_bytes = s * cfg.channels * int(cfg.ring_seconds * 48_000.0) * 4
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server = MeterServer(cfg, device=dev)
+    server = MeterServer(cfg, mesh=mesh, device=dev)
     built = time.perf_counter() - t0
     feeder = Feeder(server.transport, realtime=False, n_threads=4,
                     max_buffered_frames=int(cfg.ring_seconds * 48_000.0) // 2)
@@ -1913,14 +1935,17 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
         host = {k: 1e3 * v / advances for k, v in server.host_seconds.items()}
         busy_ms, table = profiled(lambda i: server.advance(), 20)
         server.close()
+        if check_join is not None:
+            check_join(server)
     finally:
         ok, failed = feeder.stop()
     peak = torch.cuda.max_memory_allocated()
     hops_per_advance = report["hops"] / advances
     ms_per_advance = 1e3 * wall / advances
     (OUT_DIR / f"chip_smoke_profile_{label.replace(' ', '')}.txt").write_text(table)
+    shards = "" if mesh is None else f" over {len(server._shards)} shards ({', '.join(map(str, mesh.shard_devices()))})"
     log(
-        f"{label} MeterServer S={s} stereo, fetch meters every 6th hop, Feeder 4 threads flat out: built and "
+        f"{label} MeterServer S={s} stereo{shards}, fetch meters every 6th hop, Feeder 4 threads flat out: built and "
         f"warmed in {built:.1f} s; {advances} advances ({report['hops']} hops, {hops_per_advance:.2f} a "
         f"advance) in {wall:.3f} s: report {json.dumps(report)}; host ms per advance: assemble "
         f"{host['assemble']:.4f}, H2D enqueue {host['h2d']:.4f}, step enqueue {host['step']:.4f}, drain "
@@ -1935,7 +1960,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple) -> dict:
     for name in expect:
         check(launches[name] > 0, f"{label}: {name} never launched")
     return {"report": report, "host_ms": host, "busy_ms": busy_ms, "wall_ms": ms_per_advance,
-            "launches": launches}
+            "launches": launches, "peak_gib": peak / 2**30, "advances": advances}
 
 
 # -- the CLI -----------------------------------------------------------------------
@@ -2698,6 +2723,367 @@ def phase22_display(dev, served20a: dict) -> dict:
     return {"render": rendered, "live": live, "full": full}
 
 
+# -- the stream mesh ------------------------------------------------------------------
+
+
+def replicated_mismatches(shards: list, dims) -> list[str]:
+    """The paths of the carry leaves with no stream dim (``dims`` ``None``:
+    the host scalars every shard advances alike) whose value differs
+    across the shard carries ``shards``."""
+    out = []
+
+    def walk(nodes, d, path):
+        if isinstance(d, dict):
+            for k in d:
+                walk([n[k] for n in nodes], d[k], f"{path}/{k}")
+        elif isinstance(d, tuple):
+            for i, x in enumerate(d):
+                walk([n[i] for n in nodes], x, f"{path}/{i}")
+        elif d is None:
+            first = nodes[0]
+            same = all(
+                torch.equal(first.cpu(), n.cpu()) if isinstance(first, torch.Tensor) else n == first
+                for n in nodes[1:]
+            )
+            if not same:
+                out.append(path)
+
+    walk(list(shards), dims, "")
+    return out
+
+
+def join_by_leaf(vectors: list, layout: list, dims: list) -> np.ndarray:
+    """The meter vector of every stream from per-shard vectors, each
+    leaf-major over its own streams: ``layout`` the ``(name, shape)`` of
+    each leaf over all streams, ``dims`` each leaf's stream dim (``None``:
+    the leaf is shard 0's).  Raises where a vector's length does not fit
+    the layout."""
+    n = len(vectors)
+    local = [shape if d is None else (*shape[:d], shape[d] // n, *shape[d + 1:]) for (_, shape), d in
+             zip(layout, dims)]
+    sizes = [int(np.prod(shape)) for shape in local]
+    for i, v in enumerate(vectors):
+        if v.size != sum(sizes):
+            raise ValueError(f"shard {i}: {v.size} values, the layout holds {sum(sizes)} a shard")
+    out, off = [], 0
+    for shape, size, d in zip(local, sizes, dims):
+        pieces = [v[off:off + size].reshape(shape) for v in vectors]
+        out.append((pieces[0] if d is None else np.concatenate(pieces, axis=d)).reshape(-1))
+        off += size
+    return np.concatenate(out)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal tensors (NaN where NaN)."""
+    b = b.to(a.device)
+    if a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool(torch.equal(a, b))
+
+
+def _bit_equal(ours: dict, ref: dict) -> dict:
+    """``{analyzer.field: bit-equal}`` over two hops' snapshots."""
+    return {f"{name}.{f}": _same(getattr(ours[name], f), getattr(snap, f))
+            for name, snap in ref.items() for f in snap._fields}
+
+
+def phase23a_flagship_mesh(dev) -> dict:
+    """The flagship at S=8192 through ``sharded_step`` on ``make_mesh()``
+    (every card of the machine) against the unsharded ``engine.step`` on
+    ``dev``: 200 hops from 16 host blocks, resets of streams 3 and 4097 at
+    hop 60 and of 8000 at 140; every 10th hop, the reset hops and the last
+    held by the bars of ``utils/parity.py``, every hop's leaves checked for
+    bit equality; B1a launched once a shard a hop."""
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta, make_mesh, sharded_step
+    from openmeters_tpu_torch.engine.sharding import gather_carry, gather_snapshots
+    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
+    from openmeters_tpu_torch.utils.parity import check_snapshots
+
+    mesh = make_mesh()
+    n = mesh.size
+    engine = MeterEngine(flagship_config())
+    s, b, hops, bank = FLAGSHIP_S, 256, TIMED_HOPS, 16
+    gen = torch.Generator().manual_seed(SEED + 23)
+    t = torch.arange(bank * b, dtype=torch.float32) / 48_000.0
+    freqs = torch.exp(torch.rand((s, 1, 1), generator=gen) * math.log(4000.0 / 40.0)) * 40.0
+    audio = 0.3 * torch.sin(2 * torch.pi * freqs * t[None, :, None]) + 0.02 * torch.randn(
+        (s, bank * b, 2), generator=gen)
+    blocks = [audio[:, i * b:(i + 1) * b].contiguous().pin_memory() for i in range(bank)]
+    del audio
+    resets = {60: [3, 4097], 140: [8000]}
+    meta = StreamMeta.default(s, channels=2, pad_channels=2)
+    dev_meta = StreamMeta(*(x.to(dev) for x in meta))
+    t0 = time.perf_counter()
+    step, place = sharded_step(engine, mesh)
+    built = time.perf_counter() - t0
+    carry, ref = place(engine.init(s, device=dev)), engine.init(s, device=dev)
+    equal = collections.Counter()
+    launches, held = 0, 0
+    for h in range(hops):
+        rst = None
+        if h in resets:
+            rst = torch.zeros((s,), dtype=torch.bool)
+            rst[resets[h]] = True
+        before = sliding_hop.launches
+        carry, snaps = step(carry, blocks[h % bank], meta, rst)
+        launches += sliding_hop.launches - before
+        ref, rsnaps = engine.step(ref, blocks[h % bank].to(dev, non_blocking=True), dev_meta,
+                                  None if rst is None else rst.to(dev))
+        ours = gather_snapshots(snaps, step.snapshot_dims, device=dev)
+        for key, same in _bit_equal(ours, rsnaps).items():
+            equal[key] += same
+        if h % 10 == 9 or h in resets or h == hops - 1:
+            check_snapshots(ours, rsnaps, f"phase 23a hop {h}")
+            held += 1
+    torch.cuda.synchronize()
+    whole = gather_carry(engine, carry, device=dev)
+    carry_equal = _bit_equal_carry(whole, ref)
+    snap_equal = sorted(k for k, v in equal.items() if v == hops)
+    log(
+        f"phase 23a flagship S={s} over make_mesh() = {n} card(s) ({', '.join(map(str, mesh.shard_devices()))}) "
+        f"against the unsharded step on {dev}, {hops} hops, resets at hops {sorted(resets)}: step built in "
+        f"{built:.2f} s; {held} hops held by the bars of utils/parity.py; snapshot leaves bit-equal at every hop: "
+        f"{len(snap_equal)} of {len(equal)} ({', '.join(snap_equal)}); bit-equal at some hops only: "
+        f"{', '.join(f'{k} {v}' for k, v in sorted(equal.items()) if v != hops) or 'none'}; carry leaves "
+        f"bit-equal after the run: {sum(carry_equal.values())} of {len(carry_equal)}; B1a launches {launches} "
+        f"({launches / hops:.2f} a hop, {n} shard(s)) [{card_line()}]"
+    )
+    check(launches == hops * n, f"B1a launched {launches} times, want {hops * n}")
+    del carry, ref, blocks
+    torch.cuda.empty_cache()
+    return {"shards": n, "launches": launches, "snapshot_bit_equal": len(snap_equal), "snapshot_leaves": len(equal),
+            "carry_bit_equal": sum(carry_equal.values()), "carry_leaves": len(carry_equal)}
+
+
+def _bit_equal_carry(ours: dict, ref: dict) -> dict:
+    """``{path: bit-equal}`` over two engine carries' leaves."""
+    out = {}
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(b, tuple):
+            for i, x in enumerate(b):
+                walk(a[i], x, f"{path}/{i}")
+        elif isinstance(b, torch.Tensor):
+            out[path] = _same(a, b)
+        else:
+            out[path] = a == b
+
+    walk(ours, ref, "")
+    return out
+
+
+def _carry_to(carry, device):
+    """A copy of an engine carry with its tensors on ``device``."""
+    if isinstance(carry, dict):
+        return {k: _carry_to(v, device) for k, v in carry.items()}
+    if isinstance(carry, tuple):
+        return tuple(_carry_to(v, device) for v in carry)
+    return carry.to(device, copy=True) if isinstance(carry, torch.Tensor) else carry
+
+
+def mesh_audio(s: int, hops: int) -> np.ndarray:
+    """``[s, hops * 256, 2]``: phase 12's oscilloscope streams (tones, a
+    sawtooth, a glide, an onset, a quiet stream), each level scaled per
+    copy, for the first half; phase 16's tones plus noise for the rest."""
+    half = s // 2
+    osc = osc_audio(hops, SEED + 231)
+    reps = -(-half // osc.shape[0])
+    gains = np.repeat(np.linspace(1.0, 0.25, reps), osc.shape[0])[:half, None, None]
+    first = (np.tile(osc, (reps, 1, 1))[:half] * gains).astype(np.float32)
+    return np.concatenate([first, stereo_audio(s - half, hops * 256, SEED + 232)])
+
+
+def phase23b_literal_default_two_shards(dev, s: int = 64, hops: int = 150, more: int = 30) -> dict:
+    """The literal ``EngineConfig()`` (two channels) at S=64 over the
+    two-shard one-card mesh ``[dev, dev]``, 150 hops, two streams of shard
+    1 reset at hop 90, against the unsharded step on ``dev`` (both running
+    on from their own carries) and against the same two shards on the CPU
+    stepped each hop from a copy of the card shards' carry: every hop's
+    snapshots (with the oscilloscope's windows, and the spectrum's on its
+    cadence) held by the bars of ``utils/parity.py``; every replicated host
+    scalar equal across the shards and to the unsharded carry's at every
+    hop; B2, B4, B7 and ``three_band`` each launched once a shard a hop
+    from hop 60 on.  Then ``gather_carry`` -> ``save_state`` ->
+    ``load_state`` onto a one-shard mesh, continued 30 hops against the
+    uninterrupted two-shard run.
+
+    The CPU shards start each hop from the card's state because two runs
+    that slide their own states drift apart: left to run on their own, the
+    card's reassigned spectrogram parted from the CPU's by 1.18 times the
+    50-60 dB drift bar at one bin 59.95 dB below its column's peak (hop
+    123 of this audio; PERF.md has the reading), a distance between the card's and
+    the CPU's sliding paths, not between the shards; the unsharded card
+    run is the free-running reference for the mesh."""
+    from openmeters_tpu_torch.checkpoint import load_state, save_state
+    from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMesh, StreamMeta, sharded_step
+    from openmeters_tpu_torch.engine.sharding import gather_snapshots, sharded_spectrum_step
+    from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
+    from openmeters_tpu_torch.ops.iir import three_band_scan
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.rows import window_rows
+    from openmeters_tpu_torch.utils.parity import check_snapshots
+
+    b = 256
+    engine = MeterEngine(dataclasses.replace(EngineConfig(), channels=2))
+    r = engine.spectrum_cadence
+    meshes = {"card": StreamMesh([dev, dev]), "cpu": StreamMesh(["cpu", "cpu"])}
+    steps = {k: sharded_step(engine, m) for k, m in meshes.items()}
+    specs = {k: sharded_spectrum_step(engine, m) for k, m in meshes.items()}
+    carries = {k: place(engine.init(s, device="cpu")) for k, (_, place) in steps.items()}
+    ref = engine.init(s, device=dev)
+    meta = StreamMeta.default(s, channels=2, pad_channels=2)
+    dev_meta = StreamMeta(*(x.to(dev) for x in meta))
+    dims = engine.carry_stream_dims()
+    audio = mesh_audio(s, hops + more)
+    counters = (reassigned_sliding_hop, corr_dots_sums_ring, window_rows, three_band_scan)
+    launches = collections.Counter()
+    resets = np.zeros((hops + more, s), bool)
+    resets[90, [s // 2 + s // 8, s // 2 + s // 4]] = True  # two streams of shard 1
+    held_spectra = 0
+    t0 = time.perf_counter()
+
+    def hop(h, step_names=("card", "cpu"), count=False):
+        """One hop of every run in ``step_names`` and the unsharded one;
+        returns the snapshots, joined on the CPU."""
+        nonlocal ref
+        if "cpu" in step_names:  # the CPU shards take the card shards' state (in-place steps: copy first)
+            carries["cpu"] = [_carry_to(c, "cpu") for c in carries["card"]]
+        block = torch.from_numpy(np.ascontiguousarray(audio[:, h * b:(h + 1) * b]))
+        rst = torch.from_numpy(resets[h]) if resets[h].any() else None
+        out = {}
+        for k in step_names:
+            step = steps[k][0]
+            before = {c.__name__: c.launches for c in counters}
+            carries[k], snaps = step(carries[k], block, meta, rst)
+            if count and k == "card":
+                for c in counters:
+                    launches[c.__name__] += c.launches - before[c.__name__]
+            joined = gather_snapshots(snaps, step.snapshot_dims)
+            traces = [engine.extract_oscilloscope(c) for c in carries[k]]
+            joined["oscilloscope"] = gather_snapshots(traces, step.snapshot_dims["oscilloscope"])
+            out[k] = joined
+        ref, rsnaps = engine.step(ref, block.to(dev), dev_meta, None if rst is None else rst.to(dev))
+        out["unsharded"] = dict(rsnaps, oscilloscope=engine.extract_oscilloscope(ref))
+        if (h + 1) % r == 0:
+            blocks = torch.from_numpy(np.ascontiguousarray(
+                audio[:, (h + 1 - r) * b:(h + 1) * b].reshape(s, r, b, 2).transpose(1, 0, 2, 3)))
+            group = torch.from_numpy(resets[h + 1 - r:h + 1])
+            for k in step_names:
+                sps, sp_snaps = specs[k]([c["spectrum"] for c in carries[k]], blocks, meta, group)
+                for c, sp in zip(carries[k], sps):
+                    c["spectrum"] = sp
+                out[k]["spectrum"] = gather_snapshots(sp_snaps, specs[k].snapshot_dims)
+            ref["spectrum"], out["unsharded"]["spectrum"] = engine.spectrum_step(
+                ref["spectrum"], blocks.to(dev), dev_meta, group.to(dev))
+        return out
+
+    scalars = 0
+    for h in range(hops):
+        out = hop(h, count=h >= 60)
+        check_snapshots(out["card"], out["unsharded"], f"phase 23b hop {h}, two shards against unsharded")
+        check_snapshots(out["card"], out["cpu"], f"phase 23b hop {h}, card against CPU from the same state")
+        held_spectra += "spectrum" in out["card"]
+        for k in ("card", "cpu"):
+            bad = replicated_mismatches(carries[k], dims)
+            check(not bad, f"phase 23b hop {h}: replicated scalars differ across the {k} shards: {bad}")
+        bad = replicated_mismatches([carries["card"][0], ref], dims)
+        check(not bad, f"phase 23b hop {h}: replicated scalars differ from the unsharded carry's: {bad}")
+        scalars += 1
+    want = {c.__name__: 2 * max(hops - 60, 0) for c in counters}
+    check(dict(launches) == want, f"phase 23b launches {dict(launches)}, want {want} (once a shard a hop)")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+
+    # the checkpoint onto a one-shard mesh, beside the uninterrupted two shards
+    path = OUT_DIR / "phase23b_carry.npz"
+    OUT_DIR.mkdir(exist_ok=True)
+    save_state(str(path), engine, carries["card"])
+    one = StreamMesh([dev])
+    steps["one"], specs["one"] = sharded_step(engine, one), sharded_spectrum_step(engine, one)
+    carries["one"] = steps["one"][1](load_state(str(path), engine, device="cpu"))
+    for h in range(hops, hops + more):
+        out = hop(h, step_names=("card", "one"))
+        check_snapshots(out["one"], out["card"], f"phase 23b hop {h}, one shard restored against two")
+        check(not replicated_mismatches([carries["one"][0], carries["card"][0]], dims),
+              f"phase 23b hop {h}: the restored shard's scalars left the two shards'")
+    path.unlink()
+    log(
+        f"phase 23b literal EngineConfig() (2 channels) S={s} over StreamMesh([{dev}, {dev}]) against the unsharded "
+        f"step on {dev} (each free-running) and StreamMesh([cpu, cpu]) stepped each hop from the card shards' "
+        f"state: {hops} hops ({held_spectra} with a spectrum hop) in "
+        f"{main_s:.1f} s, streams {np.flatnonzero(resets[90]).tolist()} (shard 1) reset at hop 90; every hop held by the bars of "
+        f"utils/parity.py both ways; replicated host scalars equal across the shards and to the unsharded "
+        f"carry's at all {scalars} hops; launches from hop 60 on {dict(launches)} (once a shard a hop); "
+        f"gather_carry -> save_state -> load_state onto StreamMesh([{dev}]) continued {more} hops within the bars "
+        f"of the two-shard run [{card_line()}]"
+    )
+    del carries, ref
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches)}
+
+
+def phase23c_served_two_shards(dev, served20a: dict, served20b: dict) -> dict:
+    """``MeterServer`` at S=8192 over the two-shard one-card mesh, as 20a
+    (the literal default) and 20b (the flagship), beside their figures from
+    this run; after each, the server's leaf-by-leaf join of the shards'
+    meter vectors against :func:`join_by_leaf` of the same vectors."""
+    from openmeters_tpu_torch.engine import EngineConfig, StreamMesh
+
+    def check_join(server):
+        vecs = [torch.cat([m.reshape(-1).to(torch.float32) for m in sh.meters]).cpu().numpy()
+                for sh in server._shards]  # noqa: SLF001
+        meters = server.fetch_meters_now()
+        ours = join_by_leaf(vecs, server._packed_layout, server._shard_dims)  # noqa: SLF001
+        check(np.array_equal(ours, server.last_snapshot, equal_nan=True), "the served join differs by leaf")
+        check(not np.array_equal(np.concatenate(vecs), server.last_snapshot, equal_nan=True),
+              "the shard vectors concatenated whole read as the joined meters")
+        for name, value in meters.items():
+            check(value.shape[0] == FLAGSHIP_S, f"{name}: {value.shape}")
+
+    mesh = StreamMesh([dev, dev])
+    out = {}
+    for label, cfg, expect, base in (
+        ("phase 23c literal default", EngineConfig(), ("reassigned_sliding_hop", "corr_dots_sums_ring",
+                                                        "window_rows", "three_band_scan"), served20a),
+        ("phase 23c flagship", flagship_config(), ("sliding_hop",), served20b),
+    ):
+        got = phase20_serving_s8192(dev, label, cfg, expect, mesh=mesh, check_join=check_join)
+        torch.cuda.empty_cache()
+        rs, rb = got["report"], base["report"]
+        log(
+            f"{label} two shards on one card against one shard (20{'a' if base is served20a else 'b'}, this run): "
+            f"realtime_streams {rs['realtime_streams']} vs {rb['realtime_streams']} "
+            f"({100 * rs['realtime_streams'] / max(rb['realtime_streams'], 1):.1f} %); latency p50/p95 "
+            f"{rs['latency_ms_p50']}/{rs['latency_ms_p95']} vs {rb['latency_ms_p50']}/{rb['latency_ms_p95']} ms; "
+            f"host ms per advance: assemble {got['host_ms']['assemble']:.4f} vs {base['host_ms']['assemble']:.4f}, "
+            f"H2D {got['host_ms']['h2d']:.4f} vs {base['host_ms']['h2d']:.4f}, step enqueue "
+            f"{got['host_ms']['step']:.4f} vs {base['host_ms']['step']:.4f}, drain {got['host_ms']['drain']:.4f} "
+            f"vs {base['host_ms']['drain']:.4f}; device {got['busy_ms']:.4f} vs {base['busy_ms']:.4f} ms per "
+            f"advance (busy {100 * got['busy_ms'] / got['wall_ms']:.1f} vs {100 * base['busy_ms'] / base['wall_ms']:.1f} "
+            f"%); peak memory {got['peak_gib']:.3f} vs {base['peak_gib']:.3f} GiB; launches {got['launches']} vs "
+            f"{base['launches']} [{card_line()}]"
+        )
+        out[label] = got
+    return out
+
+
+def phase23_mesh(dev, served20a: dict, served20b: dict) -> dict:
+    t0 = time.perf_counter()
+    a = phase23a_flagship_mesh(dev)
+    t1 = time.perf_counter()
+    b = phase23b_literal_default_two_shards(dev)
+    t2 = time.perf_counter()
+    c = phase23c_served_two_shards(dev, served20a, served20b)
+    log(f"phase 23 in {time.perf_counter() - t0:.1f} s: 23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"flagship": a, "literal": b, "served": c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2749,11 +3135,13 @@ def main() -> int:
                                       ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows",
                                        "three_band_scan"))
     torch.cuda.empty_cache()
-    phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
+    served20b = phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
     torch.cuda.empty_cache()
     phase21_cli(dev)
     torch.cuda.empty_cache()
     phase22_display(dev, served20a)
+    torch.cuda.empty_cache()
+    phase23_mesh(dev, served20a, served20b)
 
     def entry(name, source, replaces, n, k):
         extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms", "shapes")

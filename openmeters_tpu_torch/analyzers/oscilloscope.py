@@ -318,6 +318,22 @@ class OscilloscopeAnalyzer:
             }
         return carry
 
+    def stream_dims(self) -> dict:
+        """Each carry leaf's stream dim, ``None`` for the host scalars (the
+        JAX package's ``pspecs``).  Trigger lanes are stream-major
+        (``s * n_trig + i``), so a shard's lanes are one contiguous run."""
+        dims = {
+            "hist": (0, 0, 0), "origin": None, "fresh": 0, "tick": None, "period": 0,
+            "has_period": 0, "missed": 0, "mean": 0, "reference": 0, "ref_period": 0,
+        }
+        if self.slides_probe:
+            dims.update(pspec_re=0, pspec_im=0, panchored=None)
+        if self.external_capture:
+            dims["cap"] = dict.fromkeys(("valid", "span", "start", "frac"), 0)
+        if self.holds_snap:
+            dims["snap"] = dict.fromkeys(("samples", "trace_valid", "span", "start", "frac"), 0)
+        return dims
+
     def migrate_from(self, old: "OscilloscopeAnalyzer", carry: dict, n_streams: int):
         """Keep the state across a change of ``trigger_every`` or
         ``snapshot_every`` alone: the rings, the trigger lock and the

@@ -261,13 +261,17 @@ class SpectrumAnalyzer:
             smoothed = torch.where(v, nxt, smoothed)
         return smoothed
 
-    def step(self, carry: dict, block: torch.Tensor, projections=None, reset_mask=None):
+    def step(self, carry: dict, block: torch.Tensor, projections=None, reset_mask=None, any_reset=None):
         """One hop of ``[S, B, 2]`` folded stereo samples.
 
         Args:
           projections: ``[S, trace_count, 2]`` per-stream trace projections
             (default: the config's sources).
           reset_mask: ``[S]`` bool stream restarts.
+          any_reset: whether any stream of the whole batch restarts (a host
+            bool; default: ``reset_mask.any()``).  A shard of a mesh passes
+            the batch's, so the held branch below, which advances the
+            sliding ``count``, is taken alike on every shard.
 
         Returns ``(carry, SpectrumSnapshot)``.
         """
@@ -297,7 +301,8 @@ class SpectrumAnalyzer:
             smoothed = self._smooth_cols(smoothed, power, valid)
             raw_db, weighted_db = self._to_db(smoothed)
         elif self._held and not (
-            info["ready"] > 0 or (reset_mask is not None and bool(reset_mask.any()))
+            info["ready"] > 0
+            or (any_reset if any_reset is not None else reset_mask is not None and bool(reset_mask.any()))
         ):
             # no column and no reset: the whole spectrum state is held
             new_carry["sdft"] = carry["sdft"]

@@ -88,6 +88,13 @@ class StereometerAnalyzer:
             carry["tb"] = three_band_init((n_streams, 2), 2, device=device)
         return carry
 
+    def stream_dims(self) -> dict:
+        """Each carry leaf's stream dim (the JAX package's ``pspecs``)."""
+        dims = {"moments": 2, "ring": 0, "count": 0}
+        if self.config.analyze_bands:
+            dims["tb"] = 3  # [4, cascade, 2, S, 2]
+        return dims
+
     def migrate_from(self, old: "StereometerAnalyzer", carry: dict, n_streams: int):
         """A change of ``correlation_window`` swaps the EMA's alpha and the
         state goes on; a band-analysis toggle starts the band splitter

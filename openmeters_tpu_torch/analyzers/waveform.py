@@ -160,6 +160,16 @@ class WaveformAnalyzer:
                 carry["power_tot"] = zeros(s, k, lanes)
         return carry
 
+    def stream_dims(self) -> dict:
+        """Each carry leaf's stream dim, ``None`` for the ring head every
+        shard holds alike (the JAX package's ``pspecs``)."""
+        dims = dict.fromkeys(("phase_r", "cur_min", "cur_max", "cur_has", "last_val", "last_ok"), 0)
+        if self.config.analyze_bands:
+            dims.update(tb=3, count=0, ring_head=None, raw_ring=0, color_tot=0)  # tb: [4, 1, 2, S, 2]
+            if self.config.track_history:
+                dims["power_tot"] = 0
+        return dims
+
     def migrate_from(self, old: "WaveformAnalyzer", carry: dict, n_streams: int):
         """A rate or block change starts over (``None``); a toggle of
         ``analyze_bands`` or ``track_history`` starts the band trackers

@@ -3,7 +3,10 @@
 A serving deployment can move streams across processes or cards without
 losing the 3 s loudness window, the rings or the trigger locks: the whole
 engine carry goes to one ``.npz``, each leaf under its path, with a
-fingerprint of the config.  Restore checks the fingerprint, so a
+fingerprint of the config.  A carry sharded over a mesh is gathered first
+and saved whole, so it restores onto a mesh of any size
+(:func:`~openmeters_tpu_torch.engine.sharding.place_carry`) or onto one
+device.  Restore checks the fingerprint, so a
 checkpoint never loads into an engine of another config.
 
 The format is the JAX package's: the same ``CARRY_FORMAT_VERSION``, the
@@ -62,6 +65,12 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_state(path: str, engine, carry) -> None:
+    """Write ``carry`` (an engine carry, or a sharded one: a list of one
+    carry a shard, gathered here) to ``path``."""
+    if isinstance(carry, list):
+        from openmeters_tpu_torch.engine.sharding import gather_carry
+
+        carry = gather_carry(engine, carry, device="cpu")
     items = _flatten(carry)
     arrays = {f"leaf_{i}": _to_numpy(v) for i, (_, v) in enumerate(items)}
     meta = {

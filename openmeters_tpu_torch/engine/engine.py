@@ -169,9 +169,13 @@ class MeterEngine:
             name: a.init(n_streams, device=device) for name, a in self.analyzers.items()
         }
 
-    def step(self, carry: dict, block: torch.Tensor, meta: StreamMeta, reset_mask=None):
+    def step(self, carry: dict, block: torch.Tensor, meta: StreamMeta, reset_mask=None, any_reset=None):
         """One engine hop over ``block [S, B, C]``; ``reset_mask [S]`` bool
-        restarts streams.  Returns ``(carry, {name: snapshot})``."""
+        restarts streams.  ``any_reset`` (a host bool, default
+        ``reset_mask.any()``) says whether any stream of the whole batch
+        restarts: a shard of a mesh passes the batch's, so a decision that
+        advances a host scalar is taken alike on every shard.  Returns
+        ``(carry, {name: snapshot})``."""
         block = block.to(torch.float32)
         stereo = torch.einsum("sbc,sct->sbt", block, meta.fold)  # [S, B, 2]
         mid = 0.5 * (stereo[..., 0] + stereo[..., 1])  # [S, B]
@@ -192,7 +196,7 @@ class MeterEngine:
                 new_carry["spectrum"] = carry["spectrum"]
             else:
                 new_carry["spectrum"], snaps["spectrum"] = analyzers["spectrum"].step(
-                    carry["spectrum"], stereo, reset_mask=reset_mask
+                    carry["spectrum"], stereo, reset_mask=reset_mask, any_reset=any_reset
                 )
         for name in ("oscilloscope", "stereometer", "waveform"):
             if name in analyzers:
@@ -276,6 +280,48 @@ class MeterEngine:
                 elif hasattr(analyzer, "migrate_from"):
                     migrated = analyzer.migrate_from(old[name], carry[name], n_streams)
             out[name] = migrated if migrated is not None else analyzer.init(n_streams, device=device)
+        return out
+
+    def carry_stream_dims(self) -> dict:
+        """The tree of :meth:`init` with each leaf's stream dim, ``None``
+        for a host scalar every shard of a mesh holds alike (ring origins
+        and heads, hop counters, ``anchored`` flags); the counterpart of
+        the JAX package's ``carry_pspecs``, read by
+        :mod:`~openmeters_tpu_torch.engine.sharding`."""
+        analyzers = self.analyzers
+
+        def frames():
+            return {"buf": 0, "origin": None, "avail": None, "fresh": 0}
+
+        def sliding():
+            return {"re": 0, "im": 0, "count": None, "anchored": None}
+
+        out = {}
+        if "loudness" in analyzers:
+            out["loudness"] = {
+                "kw": 1,  # [slot, S, C]
+                "wm": {"totals": 1, "suffix": 2, "sums": 1, "comp": 1, "head": None, "blocks": 0},
+                "tp": 1,
+            }
+            if analyzers["loudness"].config.gating:
+                out["loudness"]["gate"] = analyzers["loudness"]._gate.stream_dims()  # noqa: SLF001
+        if "spectrogram" in analyzers:
+            sg = analyzers["spectrogram"]
+            out["spectrogram"] = {"fb": frames()}
+            if sg.use_sliding:
+                out["spectrogram"]["sdft"] = sliding()
+            if sg.use_sliding_reassigned:
+                out["spectrogram"]["srs"] = sg._sliding_reassigned.stream_dims()  # noqa: SLF001
+        if "spectrum" in analyzers:
+            sa = analyzers["spectrum"]
+            out["spectrum"] = {"fb": frames(), "smoothed": 0}  # lanes s * trace_count + t
+            if sa.use_sliding:
+                out["spectrum"]["sdft"] = sliding()
+            if sa._held:  # noqa: SLF001
+                out["spectrum"].update(raw_db=0, weighted_db=0)
+        for name in ("oscilloscope", "stereometer", "waveform"):
+            if name in analyzers:
+                out[name] = analyzers[name].stream_dims()
         return out
 
 

@@ -142,7 +142,7 @@ def _launch(src, starts, tmpl, klen, wlen, shift, nfft, out_len, wcap, sums: boo
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.corr_search_launch(
             src.data_ptr(), ptr(st), tmpl.data_ptr(), ptr(kl), ptr(wl), sh.data_ptr(),
             dif_tw.data_ptr(), dit_tw.data_ptr(),

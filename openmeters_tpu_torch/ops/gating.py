@@ -68,6 +68,16 @@ class GatedLoudness:
             "lra": zeros(s),
         }
 
+    def stream_dims(self) -> dict:
+        """Each carry leaf's stream dim, ``None`` for the host scalars that
+        every shard holds alike (the JAX package's ``pspecs``)."""
+        dims = dict.fromkeys(
+            ("chunk_e", "ring", "fs", "pending_reset", "hist_m_n", "hist_m_e", "hist_s_n", "hist_s_e",
+             "integrated", "lra"),
+            0,
+        )
+        return {"chunk_pos": None, "ring_idx": None, **dims}
+
     def push_block(self, carry: dict, wk2, reset_mask=None) -> dict:
         """One hop of ``wk2 [S, B]`` weighted K-squared samples."""
         cl = self.chunk_len

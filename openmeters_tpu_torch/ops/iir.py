@@ -293,7 +293,7 @@ def three_band_scan(x, state, sample_rate: float, splits=(200.0, 2000.0),
     bands = torch.empty((t, 3, *lanes), dtype=torch.float32, device=x.device)
     new_state = torch.empty_like(state)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.three_band_launch(
             x.data_ptr(), state.data_ptr(), coeffs.data_ptr(), bands.data_ptr(),
             new_state.data_ptr(), t, n, cascade_n, int(cascade_high), stream,

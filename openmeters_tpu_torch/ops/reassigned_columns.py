@@ -159,7 +159,7 @@ def reassigned_columns(
     halves = [0.5 * float(a) for a in coeffs[1:]] + [0.0] * (MAX_TERMS - terms)
     gs = [math.pi * j * float(coeffs[j]) / n for j in range(1, terms)] + [0.0] * (MAX_TERMS - terms)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.reassigned_columns_launch(
             frames.data_ptr(), tw.data_ptr(), dif_tw.data_ptr(), dit_tw.data_ptr(), norm.data_ptr(),
             freq.data_ptr(), time.data_ptr(), power.data_ptr(),

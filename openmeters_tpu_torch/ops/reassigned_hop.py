@@ -227,7 +227,7 @@ def reassigned_sliding_hop(
     halves = [0.5 * float(a) for a in coeffs[1:]] + [0.0] * (MAX_TERMS - terms)
     gs = [math.pi * j * float(coeffs[j]) / n for j in range(1, terms)] + [0.0] * (MAX_TERMS - terms)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.reassigned_hop_launch(
             *(x.data_ptr() for x in states), *(x.data_ptr() for x in new_states),
             dx.data_ptr(), dh.data_ptr(), tiles.data_ptr(),

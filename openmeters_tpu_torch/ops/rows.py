@@ -72,7 +72,7 @@ def window_rows(x, starts, length: int):
 
     lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.window_rows_launch(
             x.data_ptr(), st.data_ptr(), out.data_ptr(), s, n, w, length, stream
         )

@@ -206,7 +206,7 @@ def sliding_hop(
     fi2 = torch.empty_like(fi)
     out = torch.empty((s, cols, bins), dtype=torch.uint16 if emit_codes else f32, device=fr.device)
     with torch.cuda.device(fr.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(fr.device).cuda_stream
         rc = lib.sliding_hop_launch(
             fr.data_ptr(), fi.data_ptr(), deltas.data_ptr(), tiles.data_ptr(),
             rot_r.data_ptr(), rot_i.data_ptr(), dc_corr.data_ptr(), norm.data_ptr(),
@@ -266,7 +266,7 @@ def sliding_hop_spectra(
     out = torch.empty((s, cols, bins), dtype=torch.uint16 if emit_codes else f32, device=fr.device)
     window = (1.0 / n, *_window_args(coeffs), len(coeffs), float(floor_db), STORE_SCALE, int(emit_codes))
     with torch.cuda.device(fr.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(fr.device).cuda_stream
         if block_fits(n):
             build_tw, fft_tw = _block_tables(n, hop, fr.device)
             rc = lib.sliding_hop_block_launch(

@@ -203,6 +203,12 @@ class SlidingReassigned:
         state["hx_avail"] = 0
         return state
 
+    def stream_dims(self) -> dict:
+        """Each state leaf's stream dim (lanes first); ``None`` for the
+        host scalars (the JAX package's ``pspecs``)."""
+        dims = dict.fromkeys(STATE_KEYS, 0)
+        return {**dims, "hx": 0, "count": None, "anchored": None, "hx_avail": None}
+
     # -- hilbert stream ------------------------------------------------------
 
     def _hilbert_step(self, state: dict, info: dict, hilbert: torch.Tensor):

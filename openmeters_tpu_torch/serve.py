@@ -38,7 +38,14 @@ from its settings file; :class:`MultiRateMeterServer` with a
 (``ingest/runtime.py``).
 
 Runs on the card unless given ``device="cpu"``; where no card is present
-``"cuda"`` raises.  Not ported yet: a mesh (ROADMAP A12).
+``"cuda"`` raises.  Over a mesh (``mesh=``, a
+:class:`~openmeters_tpu_torch.engine.sharding.StreamMesh`) the streams
+are cut into one run a shard: each shard has its own device buffers, copy
+stream and events, carry and meter vector; an advance copies each shard's
+rows of the pinned batch to its device and issues every shard's step from
+this thread, and the drain joins the shards' meter vectors leaf by leaf
+along each leaf's stream dim, so ``last_meters()`` reads as an unsharded
+server's.
 """
 
 from __future__ import annotations
@@ -55,6 +62,13 @@ import torch.utils._pytree as pytree
 
 from openmeters_tpu_torch.analyzers.spectrogram import history_columns
 from openmeters_tpu_torch.engine import EngineConfig, MeterEngine, StreamMeta
+from openmeters_tpu_torch.engine.sharding import (
+    ShardedCarry,
+    gather_snapshots,
+    on_device,
+    place_carry,
+    snapshot_stream_dims,
+)
 from openmeters_tpu_torch.ingest import Transport
 from openmeters_tpu_torch.tracing import EngineStats
 from openmeters_tpu_torch.views import SpectrogramHistory, WaveformHistory, waveform_columns_from_meters
@@ -101,74 +115,150 @@ class _Pipeline:
     engine: MeterEngine
     cadence: int
     picked: list  # per snapshot leaf: fetched (the meters, or all with fetch="full")
-    packed_layout: list  # [(name, shape)] of the fetched leaves, in order
+    packed_layout: list  # [(name, shape)] of the fetched leaves, in order, all streams
+    shard_dims: list | None  # over a mesh: each fetched leaf's stream dim (None: shard 0's)
+    snapshot_dims: dict | None  # over a mesh: every snapshot leaf's stream dim, by analyzer
 
 
-def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, device: torch.device,
-                      meta: StreamMeta) -> _Pipeline:
-    """Warm ``engine``: two zero hops on a fresh carry (and two spectrum
-    hops where the spectrum runs at its own cadence) on a CUDA stream of
-    its own, which builds the kernels and fills the host-built caches (the
-    update tiles, the block-FFT twiddle tables, the lifted matrices, the
-    cuFFT plans); the warm snapshots give the meter layout.  Touches
+@dataclasses.dataclass
+class _Shard:
+    """A device's run of streams ``[lo, hi)`` and its state: the device
+    blocks and reset masks of both buffer sets, the copy stream and its
+    events, the carry, a cadenced spectrum's gathered blocks and held
+    snapshot, and the newest hop's meter leaves.  An unsharded server is
+    one shard of every stream."""
+
+    device: torch.device
+    lo: int
+    hi: int
+    meta: StreamMeta
+    blocks: list  # per buffer set: [K, n, B, C]
+    resets: list  # per buffer set: [K, n] bool
+    copy_stream: torch.cuda.Stream | None
+    carry: dict | None = None
+    copied: list = dataclasses.field(default_factory=lambda: [None, None])  # the set's last copy is done
+    consumed: list = dataclasses.field(default_factory=lambda: [None, None])  # the steps reading it are done
+    spec_blocks: torch.Tensor | None = None
+    spec_resets: torch.Tensor | None = None
+    spec_has_reset: bool = False
+    spectrum_snap: object = None
+    meters: list | None = None
+
+    @property
+    def n(self) -> int:
+        return self.hi - self.lo
+
+    def on(self):
+        return on_device(self.device)
+
+
+def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, shards: list) -> _Pipeline:
+    """Warm ``engine`` on each shard's device: two zero hops on a fresh
+    carry (and two spectrum hops where the spectrum runs at its own
+    cadence) on a CUDA stream of its own, which builds the kernels and
+    fills the host-built caches (the update tiles, the block-FFT twiddle
+    tables, the lifted matrices, the cuFFT plans); the warm snapshots give
+    the meter layout (over a mesh, with each leaf's stream dim).  Touches
     nothing of a server, so it may run on another thread while one serves."""
     cadence = engine.spectrum_cadence
     if config.scan_hops > 1 and cadence > 1 and config.scan_hops % cadence:
         raise ValueError(
             f"scan_hops ({config.scan_hops}) must be a multiple of the spectrum cadence ({cadence})"
         )
-    s, b, c = config.n_streams, engine.config.block_frames, config.channels
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-        carry = engine.init(s, device=device)
-        zeros = torch.zeros((s, b, c), device=device)
-        for _ in range(2):
-            carry, snaps = engine.step(carry, zeros, meta)
-        if cadence > 1:
-            blocks = torch.zeros((cadence, s, b, c), device=device)
-            sp = carry["spectrum"]
+    b, c = engine.config.block_frames, config.channels
+    for sh in shards:
+        s, device = sh.n, sh.device
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        with sh.on(), torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            carry = engine.init(s, device=device)
+            zeros = torch.zeros((s, b, c), device=device)
             for _ in range(2):
-                sp, sp_snap = engine.spectrum_step(sp, blocks, meta)
-            snaps = dict(snaps, spectrum=sp_snap)
-        leaves = _snapshot_leaves(snaps)
-        # a meter is a per-stream leaf of at most 16 values a stream; the
-        # bulk leaves (columns, points) are read at the display's clock
-        picked = [config.fetch == "full" or leaf.numel() <= 16 * s for _, leaf in leaves]
-        _pack([leaf for (_, leaf), m in zip(leaves, picked) if m])
-        del carry, snaps
-    if stream is not None:
-        stream.synchronize()
+                carry, snaps = engine.step(carry, zeros, sh.meta)
+            if cadence > 1:
+                blocks = torch.zeros((cadence, s, b, c), device=device)
+                sp = carry["spectrum"]
+                for _ in range(2):
+                    sp, sp_snap = engine.spectrum_step(sp, blocks, sh.meta)
+                snaps = dict(snaps, spectrum=sp_snap)
+            leaves = _snapshot_leaves(snaps)
+            # a meter is a per-stream leaf of at most 16 values a stream; the
+            # bulk leaves (columns, points) are read at the display's clock
+            picked = [config.fetch == "full" or leaf.numel() <= 16 * s for _, leaf in leaves]
+            _pack([leaf for (_, leaf), m in zip(leaves, picked) if m])
+            del carry, snaps
+        if stream is not None:
+            stream.synchronize()
     layout = [(name, tuple(leaf.shape)) for (name, leaf), m in zip(leaves, picked) if m]
-    return _Pipeline(engine, cadence, picked, layout)
+    dims = shard_dims = None
+    if len(shards) > 1:
+        dims = snapshot_stream_dims(engine)
+        if cadence > 1:
+            dims = dict(dims, spectrum=snapshot_stream_dims(engine, "spectrum"))
+        # -1 for no stream dim: a None is no leaf to every pytree
+        flat = _snapshot_leaves(pytree.tree_map(lambda d: -1 if d is None else d, dims, is_leaf=lambda d: d is None))
+        shard_dims = [None if d < 0 else d for (_, d), m in zip(flat, picked) if m]
+        layout = [
+            (name, shape if d is None else (*shape[:d], shape[d] * len(shards), *shape[d + 1 :]))
+            for (name, shape), d in zip(layout, shard_dims)
+        ]
+    return _Pipeline(engine, cadence, picked, layout, shard_dims, dims)
 
 
 def _pack(leaves: list) -> tuple[torch.Tensor, torch.cuda.Event | None]:
     """One f32 vector of ``leaves`` on the host: a ``torch.cat`` on the
-    device copied to a pinned vector, and the event that says the copy is
-    done (``None`` on the CPU, where it is done already)."""
+    device copied to a pinned vector, and the event on the device's current
+    stream that says the copy is done (``None`` on the CPU, where it is
+    done already)."""
     packed = torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
     if packed.device.type != "cuda":
         return packed, None
     host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
     host.copy_(packed, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(packed.device))
     return host, done
 
 
+def _join_meters(hosts: list, layout: list, shard_dims: list | None) -> np.ndarray:
+    """One meter vector of every stream from the shards' vectors (each
+    leaf-major over its own streams, never to be concatenated whole): leaf
+    by leaf, the shards' pieces joined along the leaf's stream dim; a leaf
+    without one is shard 0's."""
+    if shard_dims is None:
+        return hosts[0].numpy()
+    n = len(hosts)
+    vecs = [h.numpy() for h in hosts]
+    out, off = [], 0
+    for (_, shape), d in zip(layout, shard_dims):
+        local = shape if d is None else (*shape[:d], shape[d] // n, *shape[d + 1 :])
+        size = int(np.prod(local))
+        pieces = [v[off : off + size].reshape(local) for v in vecs]
+        out.append((pieces[0] if d is None else np.concatenate(pieces, axis=d)).reshape(-1))
+        off += size
+    return np.concatenate(out) if out else np.zeros((0,), np.float32)
+
+
 class MeterServer:
-    """Owns the transport, the engine and the serving loop."""
+    """Owns the transport, the engine and the serving loop.
+
+    ``mesh`` (a :class:`~openmeters_tpu_torch.engine.sharding.StreamMesh`
+    whose devices are of ``device``'s type) cuts the streams over its
+    devices; ``n_streams`` must divide by its size."""
 
     def __init__(self, config: ServeConfig, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("serving over a mesh of cards is not ported yet (ROADMAP A12)")
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("MeterServer: no CUDA device; pass device='cpu' to serve on the CPU")
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        devices = (device,) if mesh is None else mesh.shard_devices()
+        if any(d.type != device.type for d in devices):
+            raise ValueError(f"a mesh of {sorted({str(d) for d in devices})} for a server on {device.type}")
+        if config.n_streams % len(devices):
+            raise ValueError(f"{config.n_streams} streams do not divide over {len(devices)} shards")
+        self.mesh = mesh
+        self.device = devices[0]
         self.config = config
         engine_cfg = config.engine or EngineConfig()
         if engine_cfg.channels != config.channels:
@@ -193,16 +283,21 @@ class MeterServer:
         self._meta_fold = host_meta.fold.numpy().copy()
         self._meta_weights = host_meta.weights.numpy().copy()
         self._meta_dirty = False
-        self.meta = StreamMeta(*(t.to(device) for t in host_meta))
         cuda = device.type == "cuda"
-        # two sets of K host buffer triples, and each set's device blocks
+        # two sets of K host buffer triples; each shard has its rows of both
+        # sets on its device
         self._buffers = [[self.transport.make_buffers(pin_memory=cuda) for _ in range(k)] for _ in range(2)]
         self._host_resets = [torch.zeros((k, s), dtype=torch.bool, pin_memory=cuda) for _ in range(2)]
-        self._dev_blocks = [torch.zeros((k, s, b, c), device=device) for _ in range(2)]
-        self._dev_resets = [torch.zeros((k, s), dtype=torch.bool, device=device) for _ in range(2)]
-        self._copy_stream = torch.cuda.Stream(device) if cuda else None
-        self._copied: list = [None, None]  # event: the set's last copy to the device is done
-        self._consumed: list = [None, None]  # event: the steps reading the set's device blocks are done
+        per = s // len(devices)
+        self._shards = []
+        for i, dev in enumerate(devices):
+            lo, hi = i * per, (i + 1) * per
+            self._shards.append(_Shard(
+                dev, lo, hi, StreamMeta(*(t[lo:hi].to(dev) for t in host_meta)),
+                [torch.zeros((k, per, b, c), device=dev) for _ in range(2)],
+                [torch.zeros((k, per), dtype=torch.bool, device=dev) for _ in range(2)],
+                torch.cuda.Stream(dev) if cuda else None,
+            ))
         self._pool = ThreadPoolExecutor(config.assembler_shards) if config.assembler_shards > 1 else None
         self.paused = False
         self._stop = False
@@ -223,16 +318,31 @@ class MeterServer:
         self._swap_error = None
         self._view_histories: dict = {}  # declare_view's host rings
         self._view_stream = 0
-        self._adopt_pipeline(
-            _prepare_pipeline(self.engine, config, device, self.meta),
-            self.engine.init(s, device=device),
-            engine_cfg,
-        )
+        pipe = _prepare_pipeline(self.engine, config, self._shards)  # before the carries: its peak is transient
+        carries = []
+        for sh in self._shards:
+            with sh.on():
+                carries.append(self.engine.init(sh.n, device=sh.device))
+        self._adopt_pipeline(pipe, carries, engine_cfg)
 
-    def _adopt_pipeline(self, pipe: _Pipeline, carry: dict, engine_cfg: EngineConfig) -> None:
+    @property
+    def carry(self):
+        """The live carry: an engine carry, or over a mesh a
+        :class:`~openmeters_tpu_torch.engine.sharding.ShardedCarry`."""
+        if self.mesh is None:
+            return self._shards[0].carry
+        return ShardedCarry(sh.carry for sh in self._shards)
+
+    def _placed(self, carry: dict) -> list:
+        """An engine carry of every stream as one carry a shard."""
+        if self.mesh is None:
+            return [carry]
+        return place_carry(self.engine, self.mesh, carry)
+
+    def _adopt_pipeline(self, pipe: _Pipeline, carries: list, engine_cfg: EngineConfig) -> None:
         """The hop-boundary handoff: fetches in flight drain first (they
-        were packed under the old layout), then the engine, layout and carry
-        are swapped."""
+        were packed under the old layout), then the engine, layout and
+        carries (one a shard) are swapped."""
         while self._inflight:
             self._drain_one()
         self.engine = pipe.engine
@@ -240,19 +350,23 @@ class MeterServer:
         self._cadence = pipe.cadence
         self._picked = pipe.picked
         self._packed_layout = pipe.packed_layout
-        self.carry = carry
-        self._dev_meters = None  # the next advance's
-        if self._cadence > 1:
-            # the new cadence starts on a hop boundary, with a snapshot of
-            # the carried averaging state held until its first hop
-            s, b, c = self.config.n_streams, self.engine.config.block_frames, self.config.channels
-            self._spec_blocks = torch.zeros((self._cadence, s, b, c), device=self.device)
-            self._spec_resets = torch.zeros((self._cadence, s), dtype=torch.bool, device=self.device)
-            self._spec_has_reset = False
-            self._n_pending = 0
-            self._dev_spectrum_snap = self.engine.analyzers["spectrum"].emit(self.carry["spectrum"])
-        else:
-            self._dev_spectrum_snap = None
+        self._shard_dims = pipe.shard_dims
+        self._snapshot_dims = pipe.snapshot_dims
+        self._n_pending = 0
+        b, c = self.engine.config.block_frames, self.config.channels
+        for sh, carry in zip(self._shards, carries):
+            sh.carry = carry
+            sh.meters = None
+            if self._cadence > 1:
+                # the new cadence starts on a hop boundary, with a snapshot
+                # of the carried averaging state held until its first hop
+                with sh.on():
+                    sh.spec_blocks = torch.zeros((self._cadence, sh.n, b, c), device=sh.device)
+                    sh.spec_resets = torch.zeros((self._cadence, sh.n), dtype=torch.bool, device=sh.device)
+                    sh.spec_has_reset = False
+                    sh.spectrum_snap = self.engine.analyzers["spectrum"].emit(carry["spectrum"])
+            else:
+                sh.spectrum_snap = None
         self._revalidate_view_histories()
 
     def _revalidate_view_histories(self) -> None:
@@ -282,9 +396,17 @@ class MeterServer:
         ``channels`` belong to the transport and cannot change; a partly
         gathered spectrum hop is dropped."""
         engine_cfg, new_engine = self._validated_engine(engine_cfg)
-        pipe = _prepare_pipeline(new_engine, self.config, self.device, self.meta)
-        carry = new_engine.migrate_carry(self.engine, self.carry, self.config.n_streams)
-        self._adopt_pipeline(pipe, carry, engine_cfg)
+        pipe = _prepare_pipeline(new_engine, self.config, self._shards)
+        self._adopt_pipeline(pipe, self._migrated(new_engine), engine_cfg)
+
+    def _migrated(self, new_engine: MeterEngine) -> list:
+        """Each shard's carry carried over to ``new_engine``
+        (:meth:`MeterEngine.migrate_carry`), on the shard's device."""
+        out = []
+        for sh in self._shards:
+            with sh.on():
+                out.append(new_engine.migrate_carry(self.engine, sh.carry, sh.n))
+        return out
 
     def apply_settings_async(self, engine_cfg: EngineConfig) -> threading.Thread:
         """Reconfigure without stalling the hop cadence: the new engine is
@@ -298,11 +420,11 @@ class MeterServer:
             raise RuntimeError(
                 "a reconfiguration is already in flight; wait for it to be adopted before applying another"
             )
-        cfg, device, meta = self.config, self.device, self.meta
+        cfg, shards = self.config, list(self._shards)
 
         def work():
             try:
-                self._pending_swap = (engine_cfg, _prepare_pipeline(new_engine, cfg, device, meta))
+                self._pending_swap = (engine_cfg, _prepare_pipeline(new_engine, cfg, shards))
             except Exception as exc:  # raised from the serving loop
                 self._swap_error = exc
             finally:
@@ -329,8 +451,7 @@ class MeterServer:
             return
         self._pending_swap = None
         engine_cfg, pipe = pending
-        carry = pipe.engine.migrate_carry(self.engine, self.carry, self.config.n_streams)
-        self._adopt_pipeline(pipe, carry, engine_cfg)
+        self._adopt_pipeline(pipe, self._migrated(pipe.engine), engine_cfg)
 
     def _validated_engine(self, engine_cfg: EngineConfig):
         """Clamp ``channels`` to the transport's and refuse a change of the
@@ -362,7 +483,9 @@ class MeterServer:
 
     def checkpoint(self, path: str) -> None:
         """Save the live carry (filter states, loudness windows, rings,
-        trigger locks) to ``path``, so a restarted server resumes mid-window."""
+        trigger locks) to ``path``, so a restarted server resumes mid-window
+        (over a mesh the shards are gathered: it restores onto a mesh of
+        any size, or onto one device)."""
         from openmeters_tpu_torch.checkpoint import save_state
 
         save_state(path, self.engine, self.carry)
@@ -372,19 +495,21 @@ class MeterServer:
         must match the fingerprint, its stream count the serving config's)."""
         from openmeters_tpu_torch.checkpoint import _flatten, _infer_streams, load_state
 
-        carry = load_state(path, self.engine, device=self.device)
+        carry = load_state(path, self.engine, device=self.device if self.mesh is None else "cpu")
         n = _infer_streams(self.engine, dict(_flatten(carry)))
         if n != self.config.n_streams:
             raise ValueError(
                 f"checkpoint holds {n} streams; server is configured for {self.config.n_streams}"
             )
-        self.carry = carry
-        if self._cadence > 1:
-            # a partly gathered spectrum hop is dropped, and the held
-            # snapshot is the restored averaging state's
-            self._n_pending = 0
-            self._spec_has_reset = False
-            self._dev_spectrum_snap = self.engine.analyzers["spectrum"].emit(self.carry["spectrum"])
+        self._n_pending = 0
+        for sh, c in zip(self._shards, self._placed(carry)):
+            sh.carry = c
+            if self._cadence > 1:
+                # a partly gathered spectrum hop is dropped, and the held
+                # snapshot is the restored averaging state's
+                sh.spec_has_reset = False
+                with sh.on():
+                    sh.spectrum_snap = self.engine.analyzers["spectrum"].emit(c["spectrum"])
         # a restarted transport flags each stream's first data as a reset;
         # that reset is the resumption itself, so the first one per stream
         # is consumed and cannot wipe the restored carry
@@ -480,11 +605,13 @@ class MeterServer:
             with self._meta_lock:
                 fold, weights = self._meta_fold.copy(), self._meta_weights.copy()
                 self._meta_dirty = False
-            self.meta = StreamMeta(torch.from_numpy(fold).to(self.device),
-                                   torch.from_numpy(weights).to(self.device))
+            for sh in self._shards:
+                sh.meta = StreamMeta(torch.from_numpy(fold[sh.lo : sh.hi]).to(sh.device),
+                                     torch.from_numpy(weights[sh.lo : sh.hi]).to(sh.device))
         t0 = time.perf_counter()
-        if self._copied[i] is not None:
-            self._copied[i].synchronize()  # this set's last copy has left the buffers
+        for sh in self._shards:
+            if sh.copied[i] is not None:
+                sh.copied[i].synchronize()  # this set's last copy has left the buffers
         resets = []
         for j, out in enumerate(self._buffers[i]):
             _, rst, und, _ = self.transport.assemble(
@@ -500,41 +627,53 @@ class MeterServer:
             self.stats.record(cfg.n_streams, ecfg.block_frames, ecfg.sample_rate,
                               resets=int(rst.sum()), underruns=int(und.sum()))
         t1 = time.perf_counter()
-        blocks, dev_resets = self._dev_blocks[i], self._dev_resets[i]
-        has_reset = [bool(r.any()) for r in resets]
-        copy = self._copy_stream
-        with torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
-            if copy is not None and self._consumed[i] is not None:
-                copy.wait_event(self._consumed[i])  # the steps that read these blocks are done
-            for j, (batch, _, _) in enumerate(self._buffers[i]):
-                blocks[j].copy_(torch.from_numpy(batch), non_blocking=True)
-                if has_reset[j]:
-                    self._host_resets[i][j].numpy()[:] = resets[j]
-                    dev_resets[j].copy_(self._host_resets[i][j], non_blocking=True)
+        for j, rst in enumerate(resets):
+            if rst.any():
+                self._host_resets[i][j].numpy()[:] = rst
+        # per shard and hop: whether its streams had a reset (a shard
+        # without one steps with no mask: the analyzers read a mask back to
+        # the host)
+        has_reset = [[bool(r[sh.lo : sh.hi].any()) for r in resets] for sh in self._shards]
+        any_reset = [bool(r.any()) for r in resets]
+        for sh, has in zip(self._shards, has_reset):
+            copy = sh.copy_stream
+            with sh.on(), torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
+                if copy is not None and sh.consumed[i] is not None:
+                    copy.wait_event(sh.consumed[i])  # the steps that read these blocks are done
+                for j, (batch, _, _) in enumerate(self._buffers[i]):
+                    sh.blocks[i][j].copy_(torch.from_numpy(batch[sh.lo : sh.hi]), non_blocking=True)
+                    if has[j]:
+                        sh.resets[i][j].copy_(self._host_resets[i][j][sh.lo : sh.hi], non_blocking=True)
+                if copy is not None:
+                    sh.copied[i] = torch.cuda.Event()
+                    sh.copied[i].record(copy)
             if copy is not None:
-                self._copied[i] = torch.cuda.Event()
-                self._copied[i].record(copy)
-        if copy is not None:
-            torch.cuda.current_stream(self.device).wait_event(self._copied[i])
+                torch.cuda.current_stream(sh.device).wait_event(sh.copied[i])
         t2 = time.perf_counter()
-        for j in range(k):
-            # no mask on a hop without a reset: the analyzers read a mask
-            # back to the host
-            rst = dev_resets[j] if has_reset[j] else None
-            self.carry, snaps = self.engine.step(self.carry, blocks[j], self.meta, rst)
-            if self._cadence > 1:
-                self._spectrum_block(blocks[j], rst)
-        if copy is not None:
-            self._consumed[i] = torch.cuda.Event()
-            self._consumed[i].record()
+        n0 = self._n_pending
+        for sh, has in zip(self._shards, has_reset):
+            with sh.on():
+                blocks = sh.blocks[i]
+                for j in range(k):
+                    rst = sh.resets[i][j] if has[j] else None
+                    # the batch's reset, not the shard's: the held spectrum's
+                    # slide advances a host scalar every shard must share
+                    sh.carry, snaps = self.engine.step(sh.carry, blocks[j], sh.meta, rst, any_reset[j])
+                    if self._cadence > 1:
+                        self._spectrum_block(sh, (n0 + j) % self._cadence, blocks[j], rst)
+                if sh.copy_stream is not None:
+                    sh.consumed[i] = torch.cuda.Event()
+                    sh.consumed[i].record(torch.cuda.current_stream(sh.device))
+                if self._cadence > 1:
+                    snaps = dict(snaps, spectrum=sh.spectrum_snap)
+                leaves = _snapshot_leaves(snaps)
+                # only the small meter leaves are kept for fetch_meters_now
+                sh.meters = [leaf for (_, leaf), m in zip(leaves, self._picked) if m]
         if self._cadence > 1:
-            snaps = dict(snaps, spectrum=self._dev_spectrum_snap)
-        leaves = _snapshot_leaves(snaps)
-        # only the small meter leaves are kept for fetch_meters_now
-        self._dev_meters = [leaf for (_, leaf), m in zip(leaves, self._picked) if m]
+            self._n_pending = (n0 + k) % self._cadence
         fetch_now = cfg.fetch != "none" and (self.stats.hops // k) % max(cfg.fetch_every // k, 1) == 0
         if fetch_now:
-            self._inflight.append((t0, *_pack(self._dev_meters), self._packed_layout))
+            self._inflight.append((t0, self._pack_shards(), self._packed_layout, self._shard_dims))
         t3 = time.perf_counter()
         while len(self._inflight) > cfg.drain_depth:
             self._drain_one()
@@ -543,34 +682,41 @@ class MeterServer:
         h["h2d"] += t2 - t1
         h["step"] += t3 - t2
 
-    def _spectrum_block(self, block: torch.Tensor, reset) -> None:
-        """Gather one engine block of the spectrum hop; step the spectrum on
-        the R-th, with the per-block resets where the hop had any (blocks
-        before a stream's reset are zeroed)."""
-        n = self._n_pending
-        self._spec_blocks[n].copy_(block)
+    def _spectrum_block(self, sh: _Shard, n: int, block: torch.Tensor, reset) -> None:
+        """Gather engine block ``n`` of a shard's spectrum hop; step its
+        spectrum on the R-th, with the per-block resets where the hop had
+        any (blocks before a stream's reset are zeroed)."""
+        sh.spec_blocks[n].copy_(block)
         if reset is not None:
-            if not self._spec_has_reset:
-                self._spec_resets.zero_()
-                self._spec_has_reset = True
-            self._spec_resets[n].copy_(reset)
-        self._n_pending = n + 1
-        if self._n_pending == self._cadence:
-            self.carry["spectrum"], self._dev_spectrum_snap = self.engine.spectrum_step(
-                self.carry["spectrum"], self._spec_blocks, self.meta,
-                self._spec_resets if self._spec_has_reset else None,
+            if not sh.spec_has_reset:
+                sh.spec_resets.zero_()
+                sh.spec_has_reset = True
+            sh.spec_resets[n].copy_(reset)
+        if n + 1 == self._cadence:
+            sh.carry["spectrum"], sh.spectrum_snap = self.engine.spectrum_step(
+                sh.carry["spectrum"], sh.spec_blocks, sh.meta,
+                sh.spec_resets if sh.spec_has_reset else None,
             )
-            self._n_pending = 0
-            self._spec_has_reset = False
+            sh.spec_has_reset = False
+
+    def _pack_shards(self) -> list:
+        """Each shard's meter leaves packed to a host vector on its device,
+        with the copy's event: ``[(host, event)]``."""
+        out = []
+        for sh in self._shards:
+            with sh.on():
+                out.append(_pack(sh.meters))
+        return out
 
     def _drain_one(self) -> None:
         if not self._inflight:
             return
         t = time.perf_counter()
-        t0, host, done, layout = self._inflight.pop(0)
-        if done is not None:
-            done.synchronize()
-        self.last_snapshot = host.numpy()
+        t0, packs, layout, shard_dims = self._inflight.pop(0)
+        for _, done in packs:
+            if done is not None:
+                done.synchronize()
+        self.last_snapshot = _join_meters([host for host, _ in packs], layout, shard_dims)
         self._last_layout = layout
         self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
         self._feed_histories()
@@ -616,24 +762,45 @@ class MeterServer:
     def fetch_meters_now(self) -> dict[str, np.ndarray] | None:
         """The newest hop's meter leaves, fetched now (past the display-rate
         drain cadence)."""
-        if self._dev_meters is None:
+        if self._shards[0].meters is None:
             return None
-        host, done = _pack(self._dev_meters)
-        if done is not None:
-            done.synchronize()
-        self.last_snapshot = host.numpy()
+        packs = self._pack_shards()
+        for _, done in packs:
+            if done is not None:
+                done.synchronize()
+        self.last_snapshot = _join_meters([host for host, _ in packs], self._packed_layout, self._shard_dims)
         self._last_layout = self._packed_layout
         return self.last_meters()
+
+    def _display_snapshot(self, name: str, make, stream: int | None, as_numpy: bool):
+        """``make(shard)``'s snapshot of analyzer ``name``: of the shard
+        that holds ``stream`` only, its rows (a leading axis of 1), or of
+        every shard, joined on the host along each leaf's stream dim."""
+        if stream is not None:
+            sh = self._shards[stream // self._shards[0].n]
+            with sh.on():
+                snap = _rows(make(sh), stream - sh.lo)
+        elif len(self._shards) == 1:
+            snap = make(self._shards[0])
+        else:
+            parts = []
+            for sh in self._shards:
+                with sh.on():
+                    parts.append(make(sh))
+            snap = gather_snapshots(parts, self._snapshot_dims[name])
+        return _to_numpy(snap) if as_numpy else snap
 
     def fetch_osc_traces(self, as_numpy: bool = True, stream: int | None = None):
         """The oscilloscope's capture windows read from the live carry (the
         display's clock, not the hop's); ``None`` without an oscilloscope.
         With ``stream``, only that stream's rows are copied (a leading axis
-        of 1): what a display of one stream reads."""
+        of 1): what a display of one stream reads.  Over a mesh, all
+        streams' windows come back on the host."""
         if "oscilloscope" not in self.engine.analyzers:
             return None
-        snap = _rows(self.engine.extract_oscilloscope(self.carry), stream)
-        return _to_numpy(snap) if as_numpy else snap
+        return self._display_snapshot(
+            "oscilloscope", lambda sh: self.engine.extract_oscilloscope(sh.carry), stream, as_numpy
+        )
 
     def fetch_spectrum(self, as_numpy: bool = True, stream: int | None = None):
         """The newest spectrum snapshot at the display's clock: the one held
@@ -642,11 +809,12 @@ class MeterServer:
         spectrum.  ``stream`` as for :meth:`fetch_osc_traces`."""
         if "spectrum" not in self.engine.analyzers:
             return None
-        snap = self._dev_spectrum_snap
-        if snap is None:
-            snap = self.engine.analyzers["spectrum"].emit(self.carry["spectrum"])
-        snap = _rows(snap, stream)
-        return _to_numpy(snap) if as_numpy else snap
+
+        def make(sh):
+            snap = sh.spectrum_snap
+            return snap if snap is not None else self.engine.analyzers["spectrum"].emit(sh.carry["spectrum"])
+
+        return self._display_snapshot("spectrum", make, stream, as_numpy)
 
     def last_meters(self) -> dict[str, np.ndarray] | None:
         """The newest drained fetch as named arrays (key: the leaf's path as
@@ -683,8 +851,9 @@ class MeterServer:
     def close(self) -> None:
         while self._inflight:
             self._drain_one()
-        if self._copy_stream is not None:
-            self._copy_stream.synchronize()
+        for sh in self._shards:
+            if sh.copy_stream is not None:
+                sh.copy_stream.synchronize()
         if self._pool:
             self._pool.shutdown()
 

@@ -50,9 +50,12 @@ def merge_carry(fresh: dict, carry: dict) -> dict:
     }
 
 
-def carry_device(carry) -> torch.device:
+def carry_device(carry):
     """The device of a carry's tensors: where fresh parts of a migrated
-    carry are made."""
+    carry are made.  Of a sharded carry (a list, one carry a shard), the
+    list of each shard's device."""
+    if isinstance(carry, list):
+        return [carry_device(c) for c in carry]
     for leaf in pytree.tree_leaves(carry):
         if isinstance(leaf, torch.Tensor):
             return leaf.device

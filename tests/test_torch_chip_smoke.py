@@ -3,7 +3,9 @@ counts the instructions a sample that the crossover kernel's sample loops
 issue (``three_band_issue``) and works out the serial chain's floor from
 them (``three_band_chain_floor_ms``), here from synthetic ``cuobjdump
 -sass`` text, so neither ``nvcc`` nor a card is needed; phase 22a holds the
-card's rendered panes against the CPU's (``compare_renders``).
+card's rendered panes against the CPU's (``compare_renders``); phase 23
+joins a sharded server's meter vectors leaf by leaf (``join_by_leaf``) and
+compares the shards' replicated host scalars (``replicated_mismatches``).
 """
 
 import sys
@@ -119,3 +121,49 @@ def test_compare_renders_flags_images_off_the_bar(tmp_path, fault):
     _panes(tmp_path / "cpu", ref)
     with pytest.raises((AssertionError, ValueError)):
         chip_smoke.compare_renders(tmp_path / "card", tmp_path / "cpu")
+
+
+def _sharded_meters(n: int):
+    """A two-leaf meter layout over 4 streams (a ``[4]`` leaf, a ``[2, 4,
+    3]`` leaf with its stream dim second), its values, and the ``n``
+    shards' leaf-major vectors."""
+    rng = np.random.default_rng(5)
+    leaves = [rng.standard_normal((4,)).astype(np.float32), rng.standard_normal((2, 4, 3)).astype(np.float32)]
+    layout, dims = [("a", (4,)), ("b", (2, 4, 3))], [0, 1]
+    per = 4 // n
+    vecs = [np.concatenate([leaves[0][i * per:(i + 1) * per].ravel(), leaves[1][:, i * per:(i + 1) * per].ravel()])
+            for i in range(n)]
+    return layout, dims, leaves, vecs
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_join_by_leaf_reassembles_shard_meter_vectors(n):
+    """Each leaf's pieces joined along its stream dim give the unsharded
+    vector; the shards' vectors concatenated whole do not (beyond one
+    shard)."""
+    layout, dims, leaves, vecs = _sharded_meters(n)
+    whole = np.concatenate([leaf.ravel() for leaf in leaves])
+    assert np.array_equal(chip_smoke.join_by_leaf(vecs, layout, dims), whole)
+    assert np.array_equal(np.concatenate(vecs), whole) == (n == 1)
+
+
+def test_join_by_leaf_refuses_a_vector_off_the_layout():
+    layout, dims, _, vecs = _sharded_meters(2)
+    with pytest.raises(ValueError, match="shard 1: 13 values, the layout holds 14 a shard"):
+        chip_smoke.join_by_leaf([vecs[0], vecs[1][:-1]], layout, dims)
+
+
+def test_replicated_mismatches_names_the_scalars_that_differ():
+    """Equal host scalars and stream-sharded leaves that differ pass; a
+    host scalar or a replicated tensor that differs is named by path."""
+    import torch
+
+    dims = {"buf": 0, "origin": None, "sub": {"count": None, "ring": (0, None)}}
+
+    def shard(origin, count, ring_tail, buf):
+        return {"buf": torch.full((2, 3), buf), "origin": origin,
+                "sub": {"count": count, "ring": (torch.zeros(2), torch.full((3,), ring_tail))}}
+
+    assert chip_smoke.replicated_mismatches([shard(4, 7, 0.5, 1.0), shard(4, 7, 0.5, 2.0)], dims) == []
+    got = chip_smoke.replicated_mismatches([shard(4, 7, 0.5, 1.0), shard(5, 7, 0.25, 1.0)], dims)
+    assert got == ["/origin", "/sub/ring/1"]

@@ -24,7 +24,7 @@ from openmeters_tpu_torch import serve as tserve  # noqa: E402
 from openmeters_tpu_torch import tracing as ttracing  # noqa: E402
 from openmeters_tpu_torch.analyzers.loudness import LoudnessConfig  # noqa: E402
 from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig  # noqa: E402
-from openmeters_tpu_torch.engine import EngineConfig  # noqa: E402
+from openmeters_tpu_torch.engine import EngineConfig, StreamMesh  # noqa: E402
 from openmeters_tpu_torch.serve import MeterServer, MultiRateMeterServer, ServeConfig  # noqa: E402
 from openmeters_tpu_torch.utils.parity import (  # noqa: E402
     check_meters,
@@ -371,7 +371,7 @@ def test_multirate_apply_settings_per_bucket(tmp_path):
             assert not s.reconfig_pending
     finally:
         server.close()
-    # the socket runtime serves both buckets (tests/test_torch_cli.py drives it); a mesh is A12's
+    # the socket runtime serves both buckets (tests/test_torch_cli.py drives it)
     sock = tmp_path / "x.sock"
     server = MultiRateMeterServer(cfg, rates=(48_000.0, 44_100.0), socket_path=str(sock), device="cpu")
     try:
@@ -379,8 +379,17 @@ def test_multirate_apply_settings_per_bucket(tmp_path):
     finally:
         server.close()
     assert not sock.exists()
-    with pytest.raises(NotImplementedError, match="A12"):
-        MultiRateMeterServer(cfg, mesh=object(), device="cpu")
+    # a mesh cuts each bucket's streams over its shards
+    # (tests/test_torch_sharding.py holds the meters against an unsharded server's)
+    server = MultiRateMeterServer(dataclasses.replace(cfg, n_streams=2), rates=(48_000.0, 44_100.0),
+                                  mesh=StreamMesh(["cpu", "cpu"]), device="cpu")
+    try:
+        server.advance()
+        for s in server.servers.values():
+            assert [(sh.lo, sh.hi) for sh in s._shards] == [(0, 1), (1, 2)]
+            assert s.fetch_meters_now()["['loudness'].momentary_lufs"].shape == (2,)
+    finally:
+        server.close()
 
 
 @pytest.mark.parametrize("fetch", ["full", "meters"])
@@ -427,8 +436,11 @@ def test_serve_on_cuda_raises_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MeterServer(ServeConfig(n_streams=1, engine=tiny_engine()))
-    with pytest.raises(NotImplementedError, match="A12"):
-        MeterServer(ServeConfig(n_streams=1, engine=tiny_engine()), mesh=object(), device="cpu")
+    # nor over a mesh: a server never falls back to the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeterServer(ServeConfig(n_streams=2, engine=tiny_engine()), mesh=StreamMesh(["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="a mesh of"):
+        MeterServer(ServeConfig(n_streams=2, engine=tiny_engine()), mesh=StreamMesh(["cuda:0"] * 2), device="cpu")
 
 
 def test_set_stream_layout_matches_jax():

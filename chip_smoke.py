@@ -94,10 +94,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
     uninterrupted one reported (bit-equal or its largest difference);
 20. ``MeterServer`` at S=8192 stereo streams on the card, the C++ ``Feeder``
     pushing flat out: the literal ``EngineConfig()`` (20a), then the
-    flagship (20b); 40 warm-up advances, 200 timed to the last drained
+    flagship (20b); 20 warm-up advances, 200 timed to the last drained
     fetch: ``report()``, host ms per advance by stage, the device's busy
-    share from a profile, peak device memory, the transport's host bytes,
-    and the launches of the path's kernels (each must launch).
+    share from a 10-advance profile, peak device memory, the transport's
+    host bytes, and the launches of the path's kernels (each must launch).
 21. the CLI on the card, in this process through
     ``openmeters_tpu_torch.__main__.main``: (a) ``serve --socket PATH
     --rates 44100,48000 --streams 4096`` with the flagship in a settings
@@ -145,10 +145,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
     -> ``save_state`` -> ``load_state`` onto a one-shard mesh, 30 hops on
     against the uninterrupted two shards; (c) ``MeterServer`` at S=8192
     over the two-shard one-card mesh, the literal default and the flagship
-    as 20a and 20b (report, host ms by stage, busy share, peak memory,
-    launches) beside 20a's and 20b's of this run, and the server's
+    as 20a and 20b, 100 timed advances (report, host ms by stage, busy
+    share, peak memory, launches) beside 20a's and 20b's of this run, and
+    the server's
     leaf-by-leaf join of the shards' meter vectors against
-    ``join_by_leaf``'s.
+    ``join_by_leaf``'s;
+24. long runs, (b) in two processes of their own started after 23c,
+    beside 23a, 23b and (a) (23c runs first of phase 23): (a)
+    the drift of the free-running reassigned default
+    (loudness + ``SpectrogramConfig()``, 2 channels) at S=256 over 640
+    hops of tones (40 Hz to 8 kHz), tones with noise and tones with level
+    steps: the card (B2) and the hop's f32 plain version on the card, each
+    against the port's CPU path (its float64 plain hop), the time error as
+    a multiple of ``DRIFT_TIME_HOPS`` by band (largest, 99.9th percentile,
+    the bins over 1.0 and where they lie), the card held within the bar or
+    1.5 times the f32 plain version's own distance
+    (``utils/parity.py::check_near_reference``); (b) the flagship (B1a) and the
+    reassigned default (B2) at S=64 for 65,700 hops each (16,819,200
+    samples, past 2^24) of programme audio made on the card (tones, noise,
+    both; levels stepping 6 to 20 dB every 1.6 s, some sections below -70
+    LUFS), steps chained with every snapshot leaf folded into a checksum on
+    the card and no synchronizing call between the checks; every 4,096
+    hops, on the hop before a re-anchor and on the re-anchor hop, the last
+    column against its exact recompute from the rings (float64 rFFTs on the
+    host), within the phase-4 and phase-8 bars or 1.5 times the hop's f32
+    plain version's own distance from it (stepped on the card from the
+    card's carry through the re-anchor); the last 200 hops card against CPU
+    stepped each hop from the card's carry (the reassigned columns within
+    the bars or 1.5 times the f32 plain hop's distance); four streams'
+    integrated loudness and LRA against ``tests/ebur_ref.py`` within 0.02
+    and 0.2 LU.
 
 The flagship is ``EngineConfig(spectrogram=SpectrogramConfig(2048, 64,
 use_reassignment=False), spectrum=None, oscilloscope=None,
@@ -198,8 +224,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 
 
+STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1886,14 +1916,15 @@ def phase19_serving_card_vs_cpu(dev, s: int = 8, advances: int = 150) -> None:
     )
 
 
-def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None, check_join=None) -> dict:
+def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None, check_join=None,
+                          advances: int = TIMED_HOPS, warmup: int = 20, profile: int = 10) -> dict:
     """``MeterServer`` at S=8192 stereo streams on the card, ``fetch="meters"``
     every sixth hop, with the C++ ``Feeder`` (4 threads) pushing flat out
-    under backpressure: 40 warm-up advances, then 200 timed (the clock
-    stopped after ``close()`` has drained every fetch), counting the
-    launches of ``expect``'s kernels, then a 20-advance profile.  With
-    ``mesh`` the server cuts its streams over it, and ``check_join(server)``
-    runs after the profile."""
+    under backpressure: ``warmup`` advances, then ``advances`` timed (the
+    clock stopped after ``close()`` has drained every fetch), counting the
+    launches of ``expect``'s kernels, then a ``profile``-advance profile.
+    With ``mesh`` the server cuts its streams over it, and
+    ``check_join(server)`` runs after the profile."""
     from openmeters_tpu_torch.ingest import Feeder
     from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
     from openmeters_tpu_torch.ops.iir import three_band_scan
@@ -1903,7 +1934,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
     from openmeters_tpu_torch.serve import MeterServer, ServeConfig
     from openmeters_tpu_torch.tracing import EngineStats
 
-    s, advances, warmup = FLAGSHIP_S, TIMED_HOPS, 40
+    s = FLAGSHIP_S
     cfg = ServeConfig(n_streams=s, channels=2, engine=engine_cfg, realtime=False, fetch="meters", fetch_every=6)
     ring_bytes = s * cfg.channels * int(cfg.ring_seconds * 48_000.0) * 4
     torch.cuda.reset_peak_memory_stats()
@@ -1933,7 +1964,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
         server.stats.wall_seconds = wall
         report = server.report()
         host = {k: 1e3 * v / advances for k, v in server.host_seconds.items()}
-        busy_ms, table = profiled(lambda i: server.advance(), 20)
+        busy_ms, table = profiled(lambda i: server.advance(), profile)
         server.close()
         if check_join is not None:
             check_join(server)
@@ -1950,7 +1981,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
         f"advance) in {wall:.3f} s: report {json.dumps(report)}; host ms per advance: assemble "
         f"{host['assemble']:.4f}, H2D enqueue {host['h2d']:.4f}, step enqueue {host['step']:.4f}, drain "
         f"{host['drain']:.4f} (wall {ms_per_advance:.4f}); device kernel time {busy_ms:.4f} ms per advance "
-        f"over a 20-advance profile: busy {100 * busy_ms / ms_per_advance:.1f} % of the timed advance; peak "
+        f"over a {profile}-advance profile: busy {100 * busy_ms / ms_per_advance:.1f} % of the timed advance; peak "
         f"device memory {peak / 2**30:.3f} GiB; transport ring {ring_bytes / 1e9:.3f} GB of host memory "
         f"(S x 2 ch x {int(cfg.ring_seconds * 48_000.0)} frames x 4 B); pushes ok {ok}, refused {failed}; "
         f"launches {launches} [{card_line()}]"
@@ -3052,7 +3083,8 @@ def phase23c_served_two_shards(dev, served20a: dict, served20b: dict) -> dict:
                                                         "window_rows", "three_band_scan"), served20a),
         ("phase 23c flagship", flagship_config(), ("sliding_hop",), served20b),
     ):
-        got = phase20_serving_s8192(dev, label, cfg, expect, mesh=mesh, check_join=check_join)
+        got = phase20_serving_s8192(dev, label, cfg, expect, mesh=mesh, check_join=check_join,
+                                    advances=TIMED_HOPS // 2)
         torch.cuda.empty_cache()
         rs, rb = got["report"], base["report"]
         log(
@@ -3072,22 +3104,568 @@ def phase23c_served_two_shards(dev, served20a: dict, served20b: dict) -> dict:
     return out
 
 
-def phase23_mesh(dev, served20a: dict, served20b: dict) -> dict:
+def phase23_mesh(dev, served20a: dict, served20b: dict, after_served=lambda: None) -> dict:
+    """23c (timed) first, then ``after_served()``, then 23a and 23b (checks
+    only, which may share the host with what that starts)."""
     t0 = time.perf_counter()
-    a = phase23a_flagship_mesh(dev)
-    t1 = time.perf_counter()
-    b = phase23b_literal_default_two_shards(dev)
-    t2 = time.perf_counter()
     c = phase23c_served_two_shards(dev, served20a, served20b)
-    log(f"phase 23 in {time.perf_counter() - t0:.1f} s: 23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
+    t1 = time.perf_counter()
+    after_served()
+    a = phase23a_flagship_mesh(dev)
+    t2 = time.perf_counter()
+    b = phase23b_literal_default_two_shards(dev)
+    log(f"phase 23 in {time.perf_counter() - t0:.1f} s: 23c {t1 - t0:.1f} s, 23a {t2 - t1:.1f} s, 23b "
         f"{time.perf_counter() - t2:.1f} s")
     return {"flagship": a, "literal": b, "served": c}
+
+
+# -- long runs ------------------------------------------------------------------------
+
+LONG_HOPS = 65_700  # 16,819,200 samples: past 2^24, and 219 runs of 300 hops (16 gating chunks)
+LONG_SECTION = 300  # hops a level of the long run's audio holds (1.6 s)
+LONG_CHECK_EVERY = 4096  # hops between exact recomputes (a multiple of the 32-hop re-anchor)
+LONG_TAIL = 200  # last hops, the CPU stepped from the card's state
+INTEGRATED_LU = 0.02  # tests/test_loudness_gating.py:116
+LRA_LU = 0.2  # tests/test_loudness_gating.py:124
+
+
+def drift_audio(s: int, hops: int, seed: int = SEED + 24) -> np.ndarray:
+    """``[s, hops * 256, 2]`` float32, each stream made from ``[seed, i]``
+    so that the first streams are the same at any ``s``: a tone at 40 Hz to
+    8 kHz (log-uniform) of amplitude 0.05 to 0.5; streams ``i % 3 == 1``
+    add noise 26 dB below the tone, streams ``i % 3 == 2`` step its level
+    by 6 to 20 dB every 0.5 to 1.5 s within -40 to 0 dB of it.  The right
+    channel is the left at 0.8 plus noise 80 dB below the tone."""
+    n = hops * 256
+    t = np.arange(n) / 48_000.0
+    out = np.empty((s, n, 2), np.float32)
+    for i in range(s):
+        rng = np.random.default_rng([seed, i])
+        f = np.exp(rng.uniform(np.log(40.0), np.log(8000.0)))
+        amp = rng.uniform(0.05, 0.5)
+        x = np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+        if i % 3 == 1:
+            x = x + 0.05 * rng.standard_normal(n)
+        elif i % 3 == 2:
+            gain, pos, level = np.empty(n), 0, 0.0
+            while pos < n:
+                m = int(rng.uniform(0.5, 1.5) * 48_000)
+                gain[pos:pos + m] = 10.0 ** (level / 20.0)
+                pos += m
+                step = rng.uniform(6.0, 20.0) * rng.choice([-1.0, 1.0])
+                level = level + step if -40.0 <= level + step <= 0.0 else level - step
+            x = x * gain
+        x = amp * x
+        out[i, :, 0] = x
+        out[i, :, 1] = 0.8 * x + 1e-4 * amp * rng.standard_normal(n)
+    return out
+
+
+class f32_plain_hop:
+    """Within it the sliding spectrogram's hop runs as its plain version in
+    float32 on every device: ``reassigned_sliding_hop_reference`` in place
+    of B2 (and of the CPU's float64 hop), ``sliding_hop_reference`` in
+    place of B1a."""
+
+    def __enter__(self):
+        from openmeters_tpu_torch.ops import sliding_reassigned, sliding_stft
+        from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop_reference
+        from openmeters_tpu_torch.ops.sliding_hop import sliding_hop_reference
+
+        def reassigned(ready, states, *args, tiles=None, **kw):
+            return reassigned_sliding_hop_reference(
+                ready, tuple(x.float() for x in states), *(x.float() for x in args), **kw)
+
+        def classic(ready, *args, tiles=None, **kw):
+            return sliding_hop_reference(ready, *args, **kw)
+
+        self.saved = (sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop)
+        sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop = reassigned, classic
+        return self
+
+    def __exit__(self, *exc):
+        from openmeters_tpu_torch.ops import sliding_reassigned, sliding_stft
+
+        sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop = self.saved
+
+
+def fmt_drift(d: dict) -> str:
+    worst = "; ".join(f"stream {w[0]} hop {w[1]} col {w[2]} bin {w[3]} {w[4]:.2f} dB down, {w[5]} hops since "
+                      f"the re-anchor, time {w[6]:.2f} hop: {w[7]:.3f}" for w in d["worst"][:8])
+    bands = "; ".join(
+        f"{name}: max {d['max_ratio_bands'][b]:.4f} of the bar (|d time| {d['max_hops'][b]:.4e} hop), 99.9th "
+        f"percentile {d['p999_ratio_bands'][b]:.4f}, {d['over_bands'][b]} bins over 1.0 of {d['held'][b]} held"
+        for b, name in enumerate(("within 50 dB", "50-60 dB")))
+    return f"{bands}; both: 99.9th percentile {d['p999_ratio']:.4f}{'; over 1.0: ' + worst if worst else ''}"
+
+
+def phase24a_drift(dev, s: int = 256, hops: int = 640) -> dict:
+    """The free-running reassigned default (loudness + ``SpectrogramConfig()``,
+    2 channels) at S=256 over ``hops`` hops of :func:`drift_audio`: the card
+    (B2), the card with the hop's f32 plain version, and the port's CPU path
+    (its float64 plain hop), each from its own carry.  The time error of
+    the card and of the f32 plain version against the CPU is tallied by
+    ``utils/parity.py::DriftTally``; the card's largest time error in
+    each band, frequency, power and time at the peak are held within their
+    bars or 1.5 times the f32 plain version's own distance
+    (``check_near_reference``); ``valid`` equal; loudness within 0.01 LU
+    (true peak 1e-3 dB)."""
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
+    from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.utils.parity import (
+        DRIFT_TIME_HOPS, FREQ_HZ, LOUDNESS_LU, POWER_REL, TIME_AT_PEAK, TRUE_PEAK_DB, DriftTally,
+        check_near_reference,
+    )
+    from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
+
+    t0 = time.perf_counter()
+    b = 256
+    engine = MeterEngine(reassigned_config())
+    refresh = engine.analyzers["spectrogram"]._sliding_reassigned.refresh_steps  # noqa: SLF001
+    audio = drift_audio(s, hops)
+    meta = StreamMeta.default(s, channels=2, pad_channels=2)
+    dev_meta = StreamMeta(*(x.to(dev) for x in meta))
+    carries = {"card": engine.init(s, device=dev), "f32": engine.init(s, device=dev), "cpu": engine.init(s, device="cpu")}
+    tally = {"card": DriftTally(), "f32": DriftTally()}
+    corrections = ("freq_hz", "power_rel", "time_at_peak")
+    worst = {k: dict.fromkeys(corrections, 0.0) for k in tally}
+    loud = {"lufs": 0.0, "true_peak": 0.0}
+    before = reassigned_sliding_hop.launches
+    columns, cpu_s = 0, 0.0
+    for h in range(hops):
+        blk = torch.from_numpy(np.ascontiguousarray(audio[:, h * b:(h + 1) * b]))
+        snaps = {}
+        carries["card"], snaps["card"] = engine.step(carries["card"], blk.to(dev), dev_meta)
+        with f32_plain_hop():
+            carries["f32"], snaps["f32"] = engine.step(carries["f32"], blk.to(dev), dev_meta)
+        t1 = time.perf_counter()
+        carries["cpu"], snaps["cpu"] = engine.step(carries["cpu"], blk, meta)
+        cpu_s += time.perf_counter() - t1
+        since = (carries["cpu"]["spectrogram"]["srs"]["count"] - 1) % refresh
+        ref = snaps["cpu"]["spectrogram"]
+        columns += int(ref.valid.sum())
+        for k in ("card", "f32"):
+            sg = snaps[k]["spectrogram"]
+            check(bool(torch.equal(sg.valid.cpu(), ref.valid)), f"phase 24a {k} hop {h}: valid differs")
+            tally[k].add(h, since, sg.time_offset, ref.time_offset, ref.power, ref.valid)
+            err, _ = errors_of((sg.freq_hz, sg.time_offset, sg.power), (ref.freq_hz, ref.time_offset, ref.power),
+                               ref.valid, drift=True)
+            for key in corrections:
+                worst[k][key] = max(worst[k][key], err[key])
+        la, lc = snaps["card"]["loudness"], snaps["cpu"]["loudness"]
+        for f in la._fields:
+            e = float((getattr(la, f).cpu() - getattr(lc, f)).abs().max())
+            key = "true_peak" if f == "true_peak_db" else "lufs"
+            loud[key] = max(loud[key], e)
+    launches = reassigned_sliding_hop.launches - before
+    summary = {k: v.summary() for k, v in tally.items()}
+    for k, label in (("card", "card (B2)"), ("f32", "f32 plain hop on the card")):
+        log(f"phase 24a {label} against the CPU's float64 hop, free-running, S={s}, {hops} hops: "
+            f"{fmt_drift(summary[k])}")
+    fmt = ", ".join
+    log(f"phase 24a corrections against the CPU: card {fmt(f'{k} {v:.3e}' for k, v in worst['card'].items())}; "
+        f"f32 plain hop {fmt(f'{k} {v:.3e}' for k, v in worst['f32'].items())}")
+    for k in tally:
+        worst[k].update({"time within 50 dB": summary[k]["max_hops"][0], "time 50-60 dB": summary[k]["max_hops"][1]})
+    bars = {"time within 50 dB": DRIFT_TIME_HOPS[0], "time 50-60 dB": DRIFT_TIME_HOPS[1], "freq_hz": FREQ_HZ,
+            "power_rel": POWER_REL, "time_at_peak": TIME_AT_PEAK}
+    near = check_near_reference(worst["card"], worst["f32"], bars, "phase 24a card against the CPU")
+    for ok, what in (
+        (loud["lufs"] <= LOUDNESS_LU, f"loudness differs by {loud['lufs']}"),
+        (loud["true_peak"] <= TRUE_PEAK_DB, f"true peak differs by {loud['true_peak']}"),
+        (launches == hops, f"B2 launched {launches} times in {hops} hops"),
+        (columns > 0, "no valid column"),
+    ):
+        check(ok, f"phase 24a: {what}")
+    secs = time.perf_counter() - t0
+    log(f"phase 24a rule (utils/parity.py::check_near_reference): the card within max(bar, 1.5 x the f32 plain "
+        f"hop's) = {fmt(f'{k} {v:.3e}' for k, v in near.items())}: held; {columns} valid columns; loudness "
+        f"{loud['lufs']:.3e} LU/dB, true peak {loud['true_peak']:.3e} dB; B2 launched {launches} times; {secs:.1f} s "
+        f"({cpu_s:.1f} s of it the CPU's steps) [{card_line()}]")
+    return {"card": summary["card"], "f32": summary["f32"], "limits": near, "errors": worst, "seconds": secs}
+
+
+class CardProgramme:
+    """Programme-like stereo audio made on the card a block at a time, for
+    ``s`` streams: stream ``i % 3`` a tone (40 Hz to 8 kHz, log-uniform),
+    noise, or both, at unit RMS, times a level that holds for
+    ``LONG_SECTION`` hops and then steps by 6 to 20 dB within -40 to -8
+    dBFS, about one section in six at -85 to -78 dBFS (below the -70 LUFS
+    gate).  The right channel is the left one's tone at 0.8 plus noise of
+    its own.  From ``seed`` (the levels, tones, and the card's noise
+    generator).  Blocks are made ``CHUNK`` hops at a time; the first
+    ``kept`` streams' audio is kept on the card (``self.kept``)."""
+
+    CHUNK = 64
+
+    def __init__(self, s: int, hops: int, dev, seed: int = SEED + 25, kept: int = 4):
+        rng = np.random.default_rng(seed)
+        sections = hops // LONG_SECTION + 1
+        levels = np.empty((s, sections))
+        for i in range(s):
+            level = rng.uniform(-30.0, -15.0)
+            for j in range(sections):
+                if rng.random() < 1.0 / 6.0:
+                    levels[i, j] = rng.uniform(-85.0, -78.0)
+                    continue
+                step = rng.uniform(6.0, 20.0) * rng.choice([-1.0, 1.0])
+                if not -40.0 <= level + step <= -8.0:
+                    step = float(np.clip(level - step, -40.0, -8.0)) - level
+                level = levels[i, j] = level + step
+        kind = np.arange(s) % 3
+        self.gain = torch.from_numpy(10.0 ** (levels / 20.0)).to(dev)
+        self.freq = torch.from_numpy(np.exp(rng.uniform(np.log(40.0), np.log(8000.0), s))).to(dev)[:, None]
+        self.phase = torch.from_numpy(rng.uniform(0.0, 2 * np.pi, s)).to(dev)[:, None]
+        self.tone = torch.from_numpy(np.where(kind == 1, 0.0, np.where(kind == 0, np.sqrt(2.0), 1.0))).to(dev)[:, None]
+        self.noise = torch.from_numpy(np.where(kind == 0, 0.0, np.where(kind == 1, 1.0, np.sqrt(0.5)))).to(dev)[:, None]
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.offsets = torch.arange(self.CHUNK * 256, device=dev, dtype=torch.float64)
+        self.s, self.dev, self.hops = s, dev, hops
+        self.kept = torch.empty((kept, hops * 256, 2), dtype=torch.float32, device=dev)
+        self.start, self.chunk = -1, None
+
+    def _make(self, h0: int) -> None:
+        """Hops ``h0`` to ``h0 + CHUNK`` as ``[CHUNK, s, 256, 2]``."""
+        n = self.CHUNK * 256
+        t = (h0 * 256 + self.offsets) / 48_000.0  # float64: exact past 2^24 samples
+        tone = torch.sin(2 * math.pi * self.freq * t + self.phase) * self.tone
+        noise = torch.randn((self.s, n, 2), generator=self.gen, device=self.dev, dtype=torch.float64)
+        x = torch.stack([tone + noise[..., 0] * self.noise, 0.8 * tone + noise[..., 1] * self.noise], -1)
+        hop = torch.arange(h0, h0 + self.CHUNK, device=self.dev).repeat_interleave(256) // LONG_SECTION
+        x = (x * self.gain[:, hop.clamp_max(self.gain.shape[1] - 1), None]).float()
+        stop = min(n, (self.hops - h0) * 256)
+        self.kept[:, h0 * 256:h0 * 256 + stop] = x[:self.kept.shape[0], :stop]
+        self.chunk = x.reshape(self.s, self.CHUNK, 256, 2).transpose(0, 1)
+        self.start = h0
+
+    def block(self, h: int) -> torch.Tensor:
+        """Hop ``h``'s block ``[s, 256, 2]`` (hops come in order)."""
+        if self.chunk is None or not self.start <= h < self.start + self.CHUNK:
+            self._make(h - h % self.CHUNK)
+        return self.chunk[h - self.start]
+
+
+def last_frames(analyzer, carry: dict, ready: int) -> dict:
+    """The framing ``info`` of the hop that produced ``carry``, rebuilt from
+    it (its ``ready`` columns, read from the ring)."""
+    fb = analyzer._frames  # noqa: SLF001
+    avail = carry["fb"]["avail"] + ready * fb.hop
+    return {"buf": carry["fb"]["buf"], "base": (carry["fb"]["origin"] - avail) % fb.cap, "ready": ready}
+
+
+def state_errors(ours, exact) -> list:
+    """The largest error of each complex state of ``ours`` (real and
+    imaginary parts in turn, each ``[S, bins]``) against ``exact``, as a
+    share of that state's row maximum."""
+    out = []
+    for i in range(0, len(exact), 2):
+        scale = torch.clamp_min(torch.hypot(exact[i], exact[i + 1]).amax(1, keepdim=True), 1e-30)
+        d = torch.maximum((ours[i].double() - exact[i]).abs(), (ours[i + 1].double() - exact[i + 1]).abs())
+        out.append(float((d / scale).max()))
+    return out
+
+
+def exact_last_column(engine, carry: dict):
+    """The spectrogram's sliding state after the hop that produced
+    ``carry`` and its last column, recomputed exactly in float64 on the
+    host from the rings.  Classic: the state is the rFFT of the last
+    window, the column the per-column path (DC removed, windowed rFFT, dB,
+    u16 codes) on it.  Reassigned: the eight states are the rFFTs of the
+    last window's raw and Hilbert crops and their ramp-weighted copies, the
+    column the hop's corrections on them.  Returns ``(states, exact
+    states, codes [S, bins] or (freq, time, power))``."""
+    from openmeters_tpu_torch.ops.reassigned_hop import _column
+    from openmeters_tpu_torch.ops.sliding_reassigned import STATE_KEYS
+
+    sg = engine.analyzers["spectrogram"]
+    host = _carry_to(carry["spectrogram"], "cpu")
+    if sg.use_sliding:
+        fb = sg._frames  # noqa: SLF001
+        info = last_frames(sg, host, fb.cols_cap)
+        frames = fb.extract(info)[:, -1].double()
+        spec = torch.fft.rfft(frames, n=fb.read_len)
+        states = (host["sdft"]["re"], host["sdft"]["im"])
+        return states, (spec.real, spec.imag), sg._classic(frames[:, None], None).codes[:, 0]  # noqa: SLF001
+    sr = sg._sliding_reassigned  # noqa: SLF001
+    info = last_frames(sg, host, sr.cols_cap)
+    info = {**info, "buf": info["buf"].double(), "base": info["base"] + (sr.cols_cap - 1) * sr.hop}
+    t = sr._tensors(torch.device("cpu"))  # noqa: SLF001
+    exact = sr._exact_states(info, host["srs"]["hx"].double(), t["ramp"].double())  # noqa: SLF001
+    column = _column(exact, t["normq"].double(), t["freqb"].double(), n=sr.n, zpf=sr.zpf, coeffs=sr.coeffs(),
+                     inv_2pi=sr.sample_rate / (2.0 * np.pi), inv_hop=1.0 / sr.hop, latency_hops=sr.center / sr.hop)
+    return tuple(host["srs"][k] for k in STATE_KEYS), exact, column
+
+
+def exact_errors(engine, carry: dict, snaps: dict) -> dict:
+    """The last spectrogram column of the hop against
+    :func:`exact_last_column`: classic, the largest code difference at
+    valid bins within 60 dB of the exact column's peak (phase 4's held
+    bins); reassigned, ``reassigned_errors`` with ``drift`` (phase 8's
+    bars), the time where the exact time offset lies within the window
+    (``window_hops``: elsewhere B sits near a zero and the time is the
+    ratio of two cancelling sums).  With each state's distance from the
+    exact one as a share of its row maximum (``state_u``: U, or the
+    classic state; ``state_v``: the ramp-weighted V)."""
+    from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
+
+    sg = snaps["spectrogram"]
+    valid = sg.valid[:, -1].cpu()
+    check(bool(valid.all()), "a stream's last column is not valid")
+    states, exact_states, exact = exact_last_column(engine, carry)
+    errs = state_errors(states, exact_states)
+    if isinstance(exact, torch.Tensor):
+        ref = exact.to(torch.int32)
+        d = ((sg.codes[:, -1].cpu().to(torch.int32) - ref).abs() * resolved_bins(ref, valid)).max()
+        return {"state_u": max(errs), "codes": int(d)}
+    sr = engine.analyzers["spectrogram"]._sliding_reassigned  # noqa: SLF001
+    err, _ = errors_of((sg.freq_hz[:, -1].cpu(), sg.time_offset[:, -1].cpu(), sg.power[:, -1].cpu()),
+                       exact, valid, drift=True, window_hops=sr.n / sr.hop)
+    return {"state_u": max(errs[:2]), "state_v": max(errs[2:]), **err}
+
+
+def exact_bars() -> dict:
+    """The bars of :func:`exact_errors`' held errors."""
+    return {"codes": 2, **reassigned_bars()}
+
+
+def fold_snapshots(snaps: dict, sink: torch.Tensor) -> torch.Tensor:
+    """``sink`` plus the sum of every leaf of every snapshot, in float64 on
+    the card: each output is read, and a non-finite one leaves the sum
+    non-finite."""
+    leaves = [leaf for snap in snaps.values() for leaf in snap]
+    return sink + torch.stack([leaf.sum(dtype=torch.float64) for leaf in leaves]).sum()
+
+
+def phase24b_long_run(dev, label: str, cfg, counter, s: int = 64, hops: int = LONG_HOPS) -> dict:
+    """``cfg`` at S=64 over ``hops`` hops of :class:`CardProgramme` audio
+    (past 2^24 samples), steps chained through ``MeterEngine.step`` and
+    every snapshot leaf folded into a float64 checksum on the card, with
+    synchronizing calls made errors (``torch.cuda.set_sync_debug_mode``)
+    between the checks from hop 64 on (the first hops copy the analyzers'
+    constants to the card).  Every ``LONG_CHECK_EVERY`` hops, on the hop
+    before a re-anchor and on the re-anchor hop, the last column is held
+    against the exact recompute from the rings (:func:`exact_errors`), and
+    so is the hop's f32 plain version, which steps the 33 hops up to the
+    check on the card from a copy of the card's carry, through the
+    re-anchor before it; the card's largest errors over the checks are held
+    within their bars, or within ``REFERENCE_MULTIPLE`` times the f32 plain
+    version's largest (``check_near_reference``).  For the last
+    ``LONG_TAIL`` hops the CPU steps each hop from a copy of the card's
+    carry, held by ``check_snapshots``; the reassigned columns there by the
+    same rule against the hop's f32 plain version from the card's state.
+    At the end four streams' integrated loudness and LRA against
+    ``tests/ebur_ref.py`` within 0.02 and 0.2 LU."""
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
+    from openmeters_tpu_torch.utils.parity import check_near_reference, check_snapshots
+
+    t0 = time.perf_counter()
+    engine = MeterEngine(cfg)
+    refresh = 32
+    meta = StreamMeta.default(s, channels=2, pad_channels=2)
+    dev_meta = StreamMeta(*(x.to(dev) for x in meta))
+    audio = CardProgramme(s, hops, dev)
+    carry = engine.init(s, device=dev)
+    sink = torch.zeros((), dtype=torch.float64, device=dev)
+    checks, plain_checks, tail, plain_tail = {}, {}, {}, {}
+    launches0 = counter.launches
+    chained = hops - LONG_TAIL
+    steady, steady_hops = 0.0, 0
+
+    def hop(h, cpu=None, plain=None):
+        nonlocal carry, sink
+        blk = audio.block(h)
+        carry, snaps = engine.step(carry, blk, dev_meta)
+        sink = fold_snapshots(snaps, sink)
+        out = [snaps, None, None]
+        if cpu is not None:
+            out[1:] = engine.step(cpu, blk.cpu(), meta)
+        if plain is not None:
+            with f32_plain_hop():
+                out[1:] = engine.step(plain, blk, dev_meta)
+        return out
+
+    def held_against_exact(h, snaps, plain, plain_snaps):
+        checks[h] = exact_errors(engine, carry, snaps)
+        plain_checks[h] = exact_errors(engine, plain, plain_snaps)
+
+    start = 2 * refresh
+    for h in range(start):  # the first window, anchors and constants (copied to the card on first use)
+        hop(h)
+    for m in range(1, chained // LONG_CHECK_EVERY + 1):
+        shadow = m * LONG_CHECK_EVERY - refresh - 1  # the f32 plain hop joins here, before the re-anchor hop
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for h in range(start, shadow):
+                hop(h)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        steady += time.perf_counter() - t1
+        steady_hops += shadow - start
+        plain = _carry_to(carry, dev)
+        for h in range(shadow, m * LONG_CHECK_EVERY + 1):
+            snaps, plain, plain_snaps = hop(h, plain=plain)
+            if h >= m * LONG_CHECK_EVERY - 1:  # the hop before a re-anchor, then the re-anchor hop
+                held_against_exact(h, snaps, plain, plain_snaps)
+        start = m * LONG_CHECK_EVERY + 1
+    for h in range(start, chained):
+        hop(h)
+    chained_s = time.perf_counter() - t0
+    reassigned = engine.analyzers["spectrogram"].use_sliding_reassigned
+    for h in range(chained, hops):
+        if reassigned:  # the hop's f32 plain version from the same state, on the card
+            with f32_plain_hop():
+                _, plain_snaps = engine.step(_carry_to(carry, dev), audio.block(h), dev_meta)
+        snaps, cpu, cpu_snaps = hop(h, _carry_to(carry, "cpu"))
+        where = f"{label} hop {h}, card against CPU from the card's state"
+        err = check_snapshots({k: v for k, v in snaps.items() if not (reassigned and k == "spectrogram")},
+                              {k: v for k, v in cpu_snaps.items() if not (reassigned and k == "spectrogram")}, where)
+        tail[h] = {f"{name}.{key}": v for name, e in err.items() for key, v in e.items()}
+        if reassigned:
+            tail[h].update(reassigned_against(snaps["spectrogram"], cpu_snaps["spectrogram"], where))
+            plain_tail[h] = reassigned_against(plain_snaps["spectrogram"], cpu_snaps["spectrogram"], where)
+    launches = counter.launches - launches0
+    ebur_ref = load_ebur_ref()
+    lo = snaps["loudness"]
+    x = audio.kept.cpu().numpy()
+    loud = []
+    for i in range(4):
+        want = ebur_ref.integrated_lufs(x[i]), ebur_ref.loudness_range(x[i])
+        loud.append((float(lo.integrated_lufs[i]) - want[0], float(lo.lra_lu[i]) - want[1]))
+    secs = time.perf_counter() - t0
+
+    def short(rows: dict) -> dict:
+        return {k: float(f"{v:.3e}") for k, v in worst(rows).items()}
+
+    key = "codes" if "codes" in next(iter(checks.values())) else "time_over_bar"
+    log(f"{label}: {key} against the exact column at each check, the card / the f32 plain hop: "
+        + ", ".join(f"{h} {checks[h][key]:.3g}/{plain_checks[h][key]:.3g}" for h in checks))
+
+    log(f"{label} S={s}, {hops} hops ({hops * 256} samples, past 2^24 = {2**24}) of programme audio made on the card: "
+        f"{chained} chained hops in {chained_s:.1f} s ({1e3 * steady / steady_hops:.4f} ms a hop between the checks, "
+        f"no synchronizing call), checksum {float(sink):.6e}; {len(checks)} hops (before and on a re-anchor) against "
+        f"the exact column, the largest errors: the card {short(checks)}, the f32 plain hop from the card's state 33 "
+        f"hops earlier {short(plain_checks)}; the last {LONG_TAIL} hops against the CPU from the card's state: the "
+        f"card {short(tail)}{f', the f32 plain hop {short(plain_tail)}' if plain_tail else ''}; "
+        f"integrated and LRA of 4 streams against tests/ebur_ref.py (LU): "
+        f"{[(float(f'{a:.2e}'), float(f'{b:.2e}')) for a, b in loud]}; {counter.__name__} launched {launches} "
+        f"times; {secs:.1f} s [{card_line()}]")
+    bars = {k: v for k, v in exact_bars().items() if k in next(iter(checks.values()))}
+    check_near_reference(worst(checks), worst(plain_checks), bars, f"{label}: the card against the exact column")
+    if reassigned:
+        check_near_reference(worst(tail), worst(plain_tail), reassigned_bars(),
+                             f"{label}: the card against the CPU from the card's state")
+    check(bool(torch.isfinite(sink)), f"{label}: a non-finite output")
+    check(launches == hops, f"{label}: {counter.__name__} launched {launches} times in {hops} hops")
+    for i, (di, dl) in enumerate(loud):
+        check(abs(di) <= INTEGRATED_LU, f"{label} stream {i}: integrated {di} LU off tests/ebur_ref.py")
+        check(abs(dl) <= LRA_LU, f"{label} stream {i}: LRA {dl} LU off tests/ebur_ref.py")
+    del audio, carry
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "checks": worst(checks), "plain": worst(plain_checks), "tail": worst(tail),
+            "ebur": loud, "launches": launches}
+
+
+def worst(rows: dict) -> dict:
+    """The largest of each number over ``rows`` (``{hop: {name: number}}``;
+    ``power_abs_all`` left out)."""
+    keys = {k for r in rows.values() for k, v in r.items() if isinstance(v, (int, float)) and k != "power_abs_all"}
+    return {k: max(r.get(k, 0) for r in rows.values()) for k in sorted(keys)}
+
+
+def reassigned_bars() -> dict:
+    from openmeters_tpu_torch.utils.parity import FREQ_HZ, POWER_REL, TIME_AT_PEAK
+
+    return {"freq_hz": FREQ_HZ, "power_rel": POWER_REL, "time_over_bar": 1.0, "time_at_peak": TIME_AT_PEAK}
+
+
+def reassigned_against(ours, cpu, where: str) -> dict:
+    """One hop's reassigned columns against the CPU's (its float64 hop) by
+    ``reassigned_errors`` with the drift bars; ``valid`` must be equal."""
+    from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
+
+    check(bool(torch.equal(ours.valid.cpu(), cpu.valid)), f"{where}: valid differs")
+    err, _ = errors_of((ours.freq_hz, ours.time_offset, ours.power), (cpu.freq_hz, cpu.time_offset, cpu.power),
+                       cpu.valid, drift=True)
+    return err
+
+
+def load_ebur_ref():
+    """``tests/ebur_ref.py`` of this checkout (the offline BS.1770 / EBU
+    Tech 3342 computation), loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "ebur_ref.py"
+    spec = importlib.util.spec_from_file_location("ebur_ref", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+LONG_RUNS = {"flagship": (flagship_config, "sliding_hop"), "reassigned default": (reassigned_config,
+                                                                                  "reassigned_sliding_hop")}
+
+
+def phase24b_child(name: str) -> int:
+    """``python3 chip_smoke.py --phase24b NAME``: one long run of phase 24b
+    in a process of its own, on the kernel library phase 2 built; its
+    result as JSON on the last line."""
+    from openmeters_tpu_torch.ops import _build, reassigned_hop, sliding_hop
+
+    dev = torch.device("cuda", 0)
+    torch.set_num_threads(1)  # the host thread paces the run; 24a's CPU hop runs beside it
+    _build.load_library()
+    config, counter = LONG_RUNS[name]
+    counter = getattr(reassigned_hop if counter.startswith("reassigned") else sliding_hop, counter)
+    out = phase24b_long_run(dev, f"phase 24b {name}", config(), counter)
+    print(json.dumps(out, default=float))
+    return 0
+
+
+def start_long_runs() -> dict:
+    """Start phase 24b's two long runs, each in a process of its own (each
+    is paced by its host thread)."""
+    here = Path(__file__).resolve()
+    return {
+        name: subprocess.Popen([sys.executable, str(here), "--phase24b", name], cwd=here.parent,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in LONG_RUNS
+    }
+
+
+def phase24_long(dev, procs: dict) -> dict:
+    """Phase 24: 24a here, then the two long runs of 24b (``procs``, started
+    before 23a) to their end."""
+    t0 = time.perf_counter()
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads - 5, 2))  # cores for the two runs of 24b
+    try:
+        out["drift"] = phase24a_drift(dev)
+    finally:
+        torch.set_num_threads(threads)
+    t1 = time.perf_counter()
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        lines = text.strip().splitlines()
+        for line in lines[:-1] if proc.returncode == 0 else lines:
+            log(f"(24b {name}) {line}")
+        check(proc.returncode == 0, f"phase 24b {name} exited {proc.returncode}")
+        out[name] = json.loads(lines[-1])
+    log(f"phase 24 in {time.perf_counter() - t0:.1f} s: 24a {t1 - t0:.1f} s, then the rest of 24b's two runs "
+        f"(in two processes since 23c's end), {out['flagship']['seconds']:.1f} s and "
+        f"{out['reassigned default']['seconds']:.1f} s of their own")
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--phase24b"]:
+        return phase24b_child(sys.argv[2])
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3141,7 +3719,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase22_display(dev, served20a)
     torch.cuda.empty_cache()
-    phase23_mesh(dev, served20a, served20b)
+    procs = {}
+    try:
+        phase23_mesh(dev, served20a, served20b, after_served=lambda: procs.update(start_long_runs()))
+        torch.cuda.empty_cache()
+        phase24_long(dev, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     def entry(name, source, replaces, n, k):
         extra = ("bound_f32_ms", "bound_tf32_ms", "bound_bytes_ms", "shapes")

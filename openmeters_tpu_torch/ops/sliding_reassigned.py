@@ -287,14 +287,15 @@ class SlidingReassigned:
         dx, dh = self._deltas(info, hx)
         st = tuple(state[k] for k in STATE_KEYS)
         if refresh:
-            # affine carry substitution: column 0's slide is
-            # U0 = rot (u + dU0), V0 = rot (v - hop u + dV0), so
-            # u' = conj(rot) U0_exact - dU0 and
-            # v' = conj(rot) V0_exact + hop u' - dV0 land it exactly
+            # carry substitution: column 0's slide is U0 = rot (u + dU0),
+            # V0 = rot (v - hop u + dV0), so with column 0's deltas zeroed
+            # u' = conj(rot) U0_exact and v' = conj(rot) V0_exact + hop u'
+            # land it exactly.  Subtracting dU0 from u' instead would leave
+            # the difference between this dU0 and the hop's own (the
+            # kernel's 3xTF32 products, or the CPU's float64 ones), ~1e-7
+            # of |dU0|: after a loud hop has left the window, far above the
+            # quiet window's spectrum
             ex = self._exact_states(info, hx, t["ramp"])
-            b = self.bins
-            ax = dx[:, 0] @ upd
-            ah = dh[:, 0] @ upd
 
             def unrot(re, im):  # conj(rot) * z
                 return re * rot_r + im * rot_i, im * rot_r - re * rot_i
@@ -303,16 +304,15 @@ class SlidingReassigned:
             uhr, uhi = unrot(ex[2], ex[3])
             vxr, vxi = unrot(ex[4], ex[5])
             vhr, vhi = unrot(ex[6], ex[7])
-            uxr, uxi = uxr - ax[:, :b], uxi - ax[:, b : 2 * b]
-            uhr, uhi = uhr - ah[:, :b], uhi - ah[:, b : 2 * b]
             st = tuple(
                 x.contiguous()
                 for x in (
                     uxr, uxi, uhr, uhi,
-                    vxr + hop * uxr - ax[:, 2 * b : 3 * b], vxi + hop * uxi - ax[:, 3 * b :],
-                    vhr + hop * uhr - ah[:, 2 * b : 3 * b], vhi + hop * uhi - ah[:, 3 * b :],
+                    vxr + hop * uxr, vxi + hop * uxi, vhr + hop * uhr, vhi + hop * uhi,
                 )
             )
+            dx[:, 0] = 0.0
+            dh[:, 0] = 0.0
 
         args = (st, dx, dh, upd, rot_r, rot_i, t["normq"], t["freqb"])
         on_cpu = hx.device.type == "cpu"

@@ -125,13 +125,13 @@ class SlidingSTFT:
         bins])``.
 
         The periodic exact re-anchor happens before the hop as a carry
-        substitution: the hop's column-0 slide is affine
-        (``F0 = rot * (f + D0)``, ``D0`` column 0's delta spectrum), so
-        ``f' = conj(rot) F0_exact - D0`` makes it land on the freshly
-        computed spectrum.  On the B1a path ``D0`` is ``d0 @ upd``; on the
-        B1b path it is ``torch.fft.rfft(d0, n)``, on refresh hops only: a
-        steady B1b hop is one kernel launch, which computes the delta
-        spectra itself, and that path builds no update matrices."""
+        substitution: the hop's column-0 slide is ``F0 = rot * (f + D0)``,
+        ``D0`` column 0's delta spectrum, so with column 0's deltas zeroed
+        ``f' = conj(rot) F0_exact`` lands it on the freshly computed
+        spectrum.  Subtracting ``D0`` from ``f'`` instead would leave the
+        difference between this ``D0`` and the one the hop computes (the
+        kernel's own products), ~1e-7 of ``|D0|``: after a loud hop has
+        left the window, far above the quiet window's spectrum."""
         fb = self.frames
         n, h = self.fft_size, self.hop
         dev = info["buf"].device
@@ -155,16 +155,9 @@ class SlidingSTFT:
         if refresh:
             spec = torch.fft.rfft(fb.slice(info, 0, n), n=n)
             sr, si = spec.real, spec.imag
-            tr = sr * rot_r + si * rot_i  # F0 * conj(rot)
-            ti = si * rot_r - sr * rot_i
-            d0 = deltas[:, 0]
-            if self.whole_row:
-                dr, di = d0 @ upd_r, d0 @ upd_i
-            else:
-                d0 = torch.fft.rfft(d0, n=n)
-                dr, di = d0.real, d0.imag
-            fr = (tr - dr).contiguous()
-            fi = (ti - di).contiguous()
+            fr = (sr * rot_r + si * rot_i).contiguous()  # F0 * conj(rot)
+            fi = (si * rot_r - sr * rot_i).contiguous()
+            deltas[:, 0] = 0.0
 
         kw = dict(n=n, coeffs=tuple(float(a) for a in self._stencil()),
                   floor_db=float(floor_db), emit_codes=emit_codes)

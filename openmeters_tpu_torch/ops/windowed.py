@@ -9,6 +9,15 @@ compensated add, re-reduced exactly from the ring every ``refresh_steps``
 pushes.  The ring head is a host int shared by all lanes, so the refresh is
 a host branch.
 
+The re-reduction sums the ring in float64 and stores the result as an f32
+pair (``sums`` the leading part, ``comp`` the rest), so it is exact
+relative to the window it reduces.  A plain f32 sum, as the JAX package
+takes, is off by ~1e-7 of the largest block it spans; when loud audio
+leaves a window that then holds quiet audio, that error stays in the sum
+until the next re-reduction.  After a 70 dB drop an f32 re-reduction left
+a trailing mean 0.62 of itself off here, and leaves the JAX package's 0.34
+off (``tests/test_torch_longrun.py::test_windowed_means_exact_after_a_drop``).
+
 The rings are updated IN PLACE (one row each per push): ``push_block``
 mutates ``carry["totals"]`` and ``carry["suffix"]``.
 """
@@ -56,15 +65,18 @@ class BlockWindowedMeans:
         }
 
     def _exact_sums(self, totals, head: int, blocks):
-        """Masked re-reduction of the whole-block window sums."""
+        """Masked re-reduction of the whole-block window sums, in float64,
+        as ``(sums, comp)``: the f32 leading part and the f32 rest."""
         k = self.ring_blocks
         ages = (head - 1 - torch.arange(k, device=totals.device)) % k
         ages = ages.reshape((k,) + (1,) * blocks.ndim)
         out = []
         for q, _ in self._qr:
             full = (ages < q) & (ages < blocks[None])
-            out.append(torch.sum(torch.where(full, totals, 0.0), dim=0))
-        return torch.stack(out)
+            out.append(torch.sum(torch.where(full, totals.double(), 0.0), dim=0))
+        exact = torch.stack(out)
+        sums = exact.float()
+        return sums, (exact - sums.double()).float()
 
     def push_block(self, carry: dict, values, reset_mask=None) -> dict:
         """Push one ``[B, lanes...]`` block.  Non-finite values count as 0;
@@ -114,8 +126,7 @@ class BlockWindowedMeans:
 
         head_next = head + 1
         if head_next % self.refresh_steps == 0:
-            sums = self._exact_sums(totals, head_next, blocks_after)
-            comp = torch.zeros_like(sums)
+            sums, comp = self._exact_sums(totals, head_next, blocks_after)
         else:
             sums = torch.stack(new_sums)
             comp = torch.stack(new_comp)

@@ -5,7 +5,10 @@ them (``three_band_chain_floor_ms``), here from synthetic ``cuobjdump
 -sass`` text, so neither ``nvcc`` nor a card is needed; phase 22a holds the
 card's rendered panes against the CPU's (``compare_renders``); phase 23
 joins a sharded server's meter vectors leaf by leaf (``join_by_leaf``) and
-compares the shards' replicated host scalars (``replicated_mismatches``).
+compares the shards' replicated host scalars (``replicated_mismatches``);
+phase 24b recomputes a hop's last spectrogram column exactly from the
+carry's rings (``exact_errors``) and makes its audio on the card a block at
+a time (``CardProgramme``).
 """
 
 import sys
@@ -167,3 +170,54 @@ def test_replicated_mismatches_names_the_scalars_that_differ():
     assert chip_smoke.replicated_mismatches([shard(4, 7, 0.5, 1.0), shard(4, 7, 0.5, 2.0)], dims) == []
     got = chip_smoke.replicated_mismatches([shard(4, 7, 0.5, 1.0), shard(5, 7, 0.25, 1.0)], dims)
     assert got == ["/origin", "/sub/ring/1"]
+
+
+@pytest.mark.parametrize("reassigned", [False, True])
+def test_exact_errors_hold_the_cpu_path(reassigned):
+    """``exact_errors`` rebuilds the last window from the carry's rings:
+    the port's CPU path over phase 24a's audio keeps its states within
+    1e-5 of their row maximum of the exact ones on the hop before a
+    re-anchor (63) and on the re-anchor hop (64), and its columns within
+    the bars of the exact ones on the re-anchor hop (on the hop before it,
+    31 hops of f32 drift put the time at the peak at the 1e-4 bar).  A
+    window one hop off parts by more than 1e-2."""
+    import torch
+
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
+
+    cfg = chip_smoke.reassigned_config() if reassigned else chip_smoke.flagship_config()
+    engine, s = MeterEngine(cfg), 3
+    meta = StreamMeta.default(s, channels=2, pad_channels=2)
+    audio = chip_smoke.drift_audio(s, 65)
+    carry = engine.init(s, device="cpu")
+    for h in range(65):
+        blk = torch.from_numpy(np.ascontiguousarray(audio[:, h * 256:(h + 1) * 256]))
+        carry, snaps = engine.step(carry, blk, meta)
+        if h >= 63:
+            err = chip_smoke.exact_errors(engine, carry, snaps)
+            for key, bar in chip_smoke.exact_bars().items():
+                if key in err and h == 64:
+                    assert err[key] <= bar, (h, key, err)
+            assert err["state_u"] <= 1e-5, (h, err)
+            info = chip_smoke.last_frames(engine.analyzers["spectrogram"], carry["spectrogram"], 4)
+            shifted = {**carry, "spectrogram": {**carry["spectrogram"], "fb": {
+                **carry["spectrogram"]["fb"], "origin": (carry["spectrogram"]["fb"]["origin"] + 64)}}}
+            assert info["ready"] == 4
+            off = chip_smoke.exact_errors(engine, shifted, snaps)
+            assert off["state_u"] > 1e-2, (h, off)
+
+
+def test_card_programme_blocks_follow_their_levels():
+    """``CardProgramme`` (on the CPU here): a block's RMS follows its
+    stream's level for the section; the same seed gives the same blocks."""
+    a = chip_smoke.CardProgramme(6, 700, "cpu")
+    b = chip_smoke.CardProgramme(6, 700, "cpu")
+    blocks = [a.block(h) for h in range(620)]
+    assert all(np.array_equal(x.numpy(), b.block(h).numpy()) for h, x in enumerate(blocks[:3]))
+    x = np.concatenate([blk.numpy() for blk in blocks], axis=1).astype(np.float64)
+    level = 20 * np.log10(a.gain.numpy())
+    for j in range(2):
+        sec = x[:, j * 300 * 256:(j + 1) * 300 * 256]
+        rms = 10 * np.log10((sec ** 2).mean(axis=(1, 2)))
+        # unit RMS on the left; the right channel's tone is 0.8 of it
+        assert np.all(np.abs(rms - level[:, j]) < 1.5), (j, rms, level[:, j])

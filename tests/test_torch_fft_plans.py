@@ -498,8 +498,9 @@ def test_b1b_route_follows_the_config(n, block):
 def test_b1b_step_runs_rfft_on_refresh_hops_only(monkeypatch):
     """On the B1b path a steady hop hands the sample deltas to the kernel
     wrapper and calls no ``torch.fft.rfft``; a refresh hop (the first ready
-    one, then every 32nd) calls it twice: the exact frame spectrum and
-    column 0's delta spectrum."""
+    one, then every 32nd) calls it once, for the exact frame spectrum, and
+    hands the wrapper column 0's deltas zeroed (the anchor lands on that
+    spectrum whatever the kernel's own delta spectra)."""
     sl = SlidingSTFT(2048, 1024, 1024, WindowKind.HANN)
     assert not sl.whole_row and sl.supported
     s, hops = 3, 70
@@ -511,7 +512,7 @@ def test_b1b_step_runs_rfft_on_refresh_hops_only(monkeypatch):
         return rfft(*args, **kw)
 
     def recorder(ready, fr, fi, deltas, *rows, n, coeffs, floor_db, emit_codes):
-        seen.append((ready, tuple(deltas.shape), deltas.dtype))
+        seen.append((ready, tuple(deltas.shape), deltas.dtype, bool((deltas[:, 0] == 0).all())))
         return fr.clone(), fi.clone(), torch.zeros((s, deltas.shape[1], fr.shape[1]))
 
     monkeypatch.setattr(torch.fft, "rfft", counting_rfft)
@@ -527,7 +528,9 @@ def test_b1b_step_runs_rfft_on_refresh_hops_only(monkeypatch):
         sdft, _ = sl.step_fused(sdft, info, norm, -120.0, emit_codes=False)
         if info["ready"] > 0 and first is None:
             first = i
-        expected.append(2 if info["ready"] > 0 and (i == first or i % 32 == 0) else 0)
+        expected.append(1 if info["ready"] > 0 and (i == first or i % 32 == 0) else 0)
     assert calls == expected
     assert sum(c > 0 for c in calls) == 3  # hops 1, 32 and 64
-    assert len(seen) == hops and all(sh == (s, 1, 1024) and dt == torch.float32 for _, sh, dt in seen)
+    assert len(seen) == hops and all(sh == (s, 1, 1024) and dt == torch.float32 for _, sh, dt, _ in seen)
+    # column 0 zeroed on refresh hops only (before the first, the ring is still empty)
+    assert [zero for ready, *_, zero in seen if ready] == [c > 0 for (ready, *_), c in zip(seen, calls) if ready]

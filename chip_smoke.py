@@ -530,8 +530,10 @@ def profiled(run_hop, hops: int):
     """``run_hop(i)`` for ``hops`` hops under the profiler.  Returns the
     device's kernel time per hop (ms): the device-side records alone (the
     table's CPU-side rows, "Command Buffer Full" among them, carry the time
-    of the kernels under them again), and the table of time by name.  A
-    profile that records no device time fails."""
+    of the kernels under them again, as the device-side copies of the
+    program's spans, ``gpu_user_annotation``, carry the time of the kernels
+    each span launched), and the table of time by name.  A profile that
+    records no device time fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -542,7 +544,7 @@ def profiled(run_hop, hops: int):
     busy_us = sum(
         getattr(e, "device_time_total", 0.0)
         for e in prof.events()
-        if e.device_type == DeviceType.CUDA
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     )
     check(busy_us > 0.0, "the profile recorded no device time")
     return busy_us / 1e3 / hops, prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)

@@ -1,0 +1,17 @@
+"""``engine.step_ms``: host milliseconds a hop issuing ``MeterEngine.step``
+(the stereo fold and every analyzer): the program's ``engine.step`` spans
+in the profiled stretch over its hops."""
+
+SPAN = "engine.step"
+
+
+def _clipped(tr, name):
+    return [min(e, tr.end) - max(s, tr.start) for s, e, n in tr.host if n == name and e > tr.start and s < tr.end]
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None:
+        return None
+    us = _clipped(tr, SPAN)
+    return sum(us) / tr.hops * 1e-3 if us else None

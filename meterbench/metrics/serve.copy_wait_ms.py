@@ -1,0 +1,17 @@
+"""``serve.copy_wait_ms``: host milliseconds a hop waiting for the last
+copy out of the host buffer set before assembling into it: the program's
+``serve.copy_wait`` spans in the profiled stretch over its hops."""
+
+SPAN = "serve.copy_wait"
+
+
+def _clipped(tr, name):
+    return [min(e, tr.end) - max(s, tr.start) for s, e, n in tr.host if n == name and e > tr.start and s < tr.end]
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None:
+        return None
+    us = _clipped(tr, SPAN)
+    return sum(us) / tr.hops * 1e-3 if us else None

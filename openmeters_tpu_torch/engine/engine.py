@@ -45,6 +45,7 @@ from openmeters_tpu_torch.analyzers.stereometer import (
     StereometerConfig,
 )
 from openmeters_tpu_torch.analyzers.waveform import WaveformAnalyzer, WaveformConfig
+from openmeters_tpu_torch.tracing import span
 from openmeters_tpu_torch.utils.channels import (
     MAX_AUDIO_CHANNELS,
     channel_fallback,
@@ -54,6 +55,8 @@ from openmeters_tpu_torch.utils.channels import (
 from openmeters_tpu_torch.utils.migrate import carry_device
 
 DSP_BATCH_FRAMES_AT_48K = 256
+# the analyzers that step on the stereo fold alone, with their spans' names
+_STEREO_ANALYZERS = tuple((name, f"analyzers.{name}") for name in ("oscilloscope", "stereometer", "waveform"))
 
 
 def scaled_block_frames(sample_rate: float) -> int:
@@ -176,34 +179,39 @@ class MeterEngine:
         restarts: a shard of a mesh passes the batch's, so a decision that
         advances a host scalar is taken alike on every shard.  Returns
         ``(carry, {name: snapshot})``."""
-        block = block.to(torch.float32)
-        stereo = torch.einsum("sbc,sct->sbt", block, meta.fold)  # [S, B, 2]
-        mid = 0.5 * (stereo[..., 0] + stereo[..., 1])  # [S, B]
+        with span("engine.step"):
+            block = block.to(torch.float32)
+            stereo = torch.einsum("sbc,sct->sbt", block, meta.fold)  # [S, B, 2]
+            mid = 0.5 * (stereo[..., 0] + stereo[..., 1])  # [S, B]
 
-        new_carry, snaps = {}, {}
-        analyzers = self.analyzers
-        if "loudness" in analyzers:
-            new_carry["loudness"], snaps["loudness"] = analyzers["loudness"].step(
-                carry["loudness"], block, meta.weights, reset_mask
-            )
-        if "spectrogram" in analyzers:
-            new_carry["spectrogram"], snaps["spectrogram"] = analyzers[
-                "spectrogram"
-            ].step(carry["spectrogram"], mid, reset_mask)
-        if "spectrum" in analyzers:
-            if self.spectrum_cadence > 1:
-                # stepped by spectrum_step every R hops
-                new_carry["spectrum"] = carry["spectrum"]
-            else:
-                new_carry["spectrum"], snaps["spectrum"] = analyzers["spectrum"].step(
-                    carry["spectrum"], stereo, reset_mask=reset_mask, any_reset=any_reset
-                )
-        for name in ("oscilloscope", "stereometer", "waveform"):
-            if name in analyzers:
-                new_carry[name], snaps[name] = analyzers[name].step(
-                    carry[name], stereo, reset_mask=reset_mask
-                )
-        return new_carry, snaps
+            new_carry, snaps = {}, {}
+            analyzers = self.analyzers
+            if "loudness" in analyzers:
+                with span("analyzers.loudness"):
+                    new_carry["loudness"], snaps["loudness"] = analyzers["loudness"].step(
+                        carry["loudness"], block, meta.weights, reset_mask
+                    )
+            if "spectrogram" in analyzers:
+                with span("analyzers.spectrogram"):
+                    new_carry["spectrogram"], snaps["spectrogram"] = analyzers[
+                        "spectrogram"
+                    ].step(carry["spectrogram"], mid, reset_mask)
+            if "spectrum" in analyzers:
+                if self.spectrum_cadence > 1:
+                    # stepped by spectrum_step every R hops
+                    new_carry["spectrum"] = carry["spectrum"]
+                else:
+                    with span("analyzers.spectrum"):
+                        new_carry["spectrum"], snaps["spectrum"] = analyzers["spectrum"].step(
+                            carry["spectrum"], stereo, reset_mask=reset_mask, any_reset=any_reset
+                        )
+            for name, span_name in _STEREO_ANALYZERS:
+                if name in analyzers:
+                    with span(span_name):
+                        new_carry[name], snaps[name] = analyzers[name].step(
+                            carry[name], stereo, reset_mask=reset_mask
+                        )
+            return new_carry, snaps
 
     def spectrum_step(self, spectrum_carry, blocks: torch.Tensor, meta: StreamMeta, reset_mask=None):
         """One spectrum hop: the ``R = spectrum_cadence`` engine blocks
@@ -227,7 +235,8 @@ class MeterEngine:
             blocks = torch.where(keep[..., None, None], blocks, 0.0)
             reset_mask = reset_mask.any(dim=0)
         stereo = torch.einsum("rsbc,sct->srbt", blocks, meta.fold).reshape(s, r * b, 2)
-        return self.analyzers["spectrum"].step(spectrum_carry, stereo, reset_mask=reset_mask)
+        with span("analyzers.spectrum"):
+            return self.analyzers["spectrum"].step(spectrum_carry, stereo, reset_mask=reset_mask)
 
     def super_step(self, carry: dict, blocks: torch.Tensor, meta: StreamMeta, resets=None,
                    fold_snaps=None):

@@ -19,6 +19,8 @@ import threading
 
 import numpy as np
 
+from openmeters_tpu_torch.tracing import span
+
 _SRCS = [
     pathlib.Path(__file__).with_name("transport.cpp"),
     pathlib.Path(__file__).with_name("feeder.cpp"),
@@ -251,28 +253,29 @@ class Transport:
         alternates two buffer sets so the asynchronous copy of hop N to the
         card can overlap assembly of hop N+1.
         """
-        batch, reset, underrun = out if out is not None else (
-            self._batch, self._reset, self._underrun
-        )
-        bid = 0xFF if buf_id is None else buf_id
-        outp = batch.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-        rst = reset.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-        und = underrun.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-        if pool is None or shards <= 1:
-            n_live = self._lib.om_assemble_buf(
-                self._h, outp, rst, und, 0, self.n_streams, bid
+        with span("ingest.assemble"):
+            batch, reset, underrun = out if out is not None else (
+                self._batch, self._reset, self._underrun
             )
-        else:
-            step = -(-self.n_streams // shards)
-            futs = [
-                pool.submit(
-                    self._lib.om_assemble_buf, self._h, outp, rst, und,
-                    lo, min(lo + step, self.n_streams), bid,
+            bid = 0xFF if buf_id is None else buf_id
+            outp = batch.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+            rst = reset.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+            und = underrun.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+            if pool is None or shards <= 1:
+                n_live = self._lib.om_assemble_buf(
+                    self._h, outp, rst, und, 0, self.n_streams, bid
                 )
-                for lo in range(0, self.n_streams, step)
-            ]
-            n_live = sum(f.result() for f in futs)
-        return batch, reset.astype(bool), underrun.astype(bool), n_live
+            else:
+                step = -(-self.n_streams // shards)
+                futs = [
+                    pool.submit(
+                        self._lib.om_assemble_buf, self._h, outp, rst, und,
+                        lo, min(lo + step, self.n_streams), bid,
+                    )
+                    for lo in range(0, self.n_streams, step)
+                ]
+                n_live = sum(f.result() for f in futs)
+            return batch, reset.astype(bool), underrun.astype(bool), n_live
 
     def make_buffers(self, pin_memory: bool = False):
         """One zeroed ``(batch, reset, underrun)`` buffer set for

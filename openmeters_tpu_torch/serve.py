@@ -15,7 +15,12 @@ One advance of :class:`MeterServer`:
 - every ``fetch_every``-th hop the meter leaves go into one ``torch.cat``,
   copied to a pinned host vector with an event; the drain waits on that
   event alone, so issuing never blocks on a fetch, and the latency from
-  assembly to drained meters is kept per drained hop.
+  assembly to drained meters is kept for the last ``LATENCY_WINDOW``
+  drained hops.
+
+Each stretch of a hop is a :class:`~openmeters_tpu_torch.tracing.span`
+(the tree is in ``tracing.py``); four of them add their seconds to
+``MeterServer.host_seconds``.
 
 A backlog runs up to ``coalesce_blocks`` hops in one advance; pause stops
 consuming; a cadenced spectrum (hop = R engine blocks) copies its blocks
@@ -50,6 +55,7 @@ server's.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -70,8 +76,10 @@ from openmeters_tpu_torch.engine.sharding import (
     snapshot_stream_dims,
 )
 from openmeters_tpu_torch.ingest import Transport
-from openmeters_tpu_torch.tracing import EngineStats
+from openmeters_tpu_torch.tracing import EngineStats, span
 from openmeters_tpu_torch.views import SpectrogramHistory, WaveformHistory, waveform_columns_from_meters
+
+LATENCY_WINDOW = 4096  # drained fetches whose latencies report() reads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,7 +311,7 @@ class MeterServer:
         self._stop = False
         self._resume_mask = None  # set by restore(): each stream's next reset is the resumption itself
         self.stats = EngineStats()
-        self.latencies_ms: list[float] = []
+        self.latencies_ms: collections.deque[float] = collections.deque(maxlen=LATENCY_WINDOW)
         # host seconds spent assembling, issuing the copies, issuing the
         # steps, and draining fetches
         self.host_seconds = {"assemble": 0.0, "h2d": 0.0, "step": 0.0, "drain": 0.0}
@@ -596,11 +604,16 @@ class MeterServer:
     # -- the loop -----------------------------------------------------------
 
     def _advance_one(self) -> None:
+        with span("serve.hop"):
+            self._hop()
+
+    def _hop(self) -> None:
         cfg = self.config
         ecfg = self.engine.config
         k = cfg.scan_hops
         i = self._buf_i
         self._buf_i ^= 1
+        h = self.host_seconds
         if self._meta_dirty:
             with self._meta_lock:
                 fold, weights = self._meta_fold.copy(), self._meta_weights.copy()
@@ -609,78 +622,78 @@ class MeterServer:
                 sh.meta = StreamMeta(torch.from_numpy(fold[sh.lo : sh.hi]).to(sh.device),
                                      torch.from_numpy(weights[sh.lo : sh.hi]).to(sh.device))
         t0 = time.perf_counter()
-        for sh in self._shards:
-            if sh.copied[i] is not None:
-                sh.copied[i].synchronize()  # this set's last copy has left the buffers
-        resets = []
-        for j, out in enumerate(self._buffers[i]):
-            _, rst, und, _ = self.transport.assemble(
-                pool=self._pool, shards=cfg.assembler_shards, out=out, buf_id=i if k == 1 else None,
-            )
-            if self._resume_mask is not None:
-                consumed = rst & self._resume_mask
-                rst = rst & ~self._resume_mask
-                self._resume_mask &= ~consumed
-                if not self._resume_mask.any():
-                    self._resume_mask = None
-            resets.append(rst)
-            self.stats.record(cfg.n_streams, ecfg.block_frames, ecfg.sample_rate,
-                              resets=int(rst.sum()), underruns=int(und.sum()))
-        t1 = time.perf_counter()
-        for j, rst in enumerate(resets):
-            if rst.any():
-                self._host_resets[i][j].numpy()[:] = rst
-        # per shard and hop: whether its streams had a reset (a shard
-        # without one steps with no mask: the analyzers read a mask back to
-        # the host)
-        has_reset = [[bool(r[sh.lo : sh.hi].any()) for r in resets] for sh in self._shards]
-        any_reset = [bool(r.any()) for r in resets]
-        for sh, has in zip(self._shards, has_reset):
-            copy = sh.copy_stream
-            with sh.on(), torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
-                if copy is not None and sh.consumed[i] is not None:
-                    copy.wait_event(sh.consumed[i])  # the steps that read these blocks are done
-                for j, (batch, _, _) in enumerate(self._buffers[i]):
-                    sh.blocks[i][j].copy_(torch.from_numpy(batch[sh.lo : sh.hi]), non_blocking=True)
-                    if has[j]:
-                        sh.resets[i][j].copy_(self._host_resets[i][j][sh.lo : sh.hi], non_blocking=True)
+        with span("serve.assemble", h, "assemble"):
+            with span("serve.copy_wait"):
+                for sh in self._shards:
+                    if sh.copied[i] is not None:
+                        sh.copied[i].synchronize()  # this set's last copy has left the buffers
+            resets = []
+            for j, out in enumerate(self._buffers[i]):
+                _, rst, und, _ = self.transport.assemble(
+                    pool=self._pool, shards=cfg.assembler_shards, out=out, buf_id=i if k == 1 else None,
+                )
+                if self._resume_mask is not None:
+                    consumed = rst & self._resume_mask
+                    rst = rst & ~self._resume_mask
+                    self._resume_mask &= ~consumed
+                    if not self._resume_mask.any():
+                        self._resume_mask = None
+                resets.append(rst)
+                self.stats.record(cfg.n_streams, ecfg.block_frames, ecfg.sample_rate,
+                                  resets=int(rst.sum()), underruns=int(und.sum()))
+        with span("serve.h2d", h, "h2d"):
+            for j, rst in enumerate(resets):
+                if rst.any():
+                    self._host_resets[i][j].numpy()[:] = rst
+            # per shard and hop: whether its streams had a reset (a shard
+            # without one steps with no mask: the analyzers read a mask back
+            # to the host)
+            has_reset = [[bool(r[sh.lo : sh.hi].any()) for r in resets] for sh in self._shards]
+            any_reset = [bool(r.any()) for r in resets]
+            for sh, has in zip(self._shards, has_reset):
+                copy = sh.copy_stream
+                with sh.on(), torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
+                    if copy is not None and sh.consumed[i] is not None:
+                        copy.wait_event(sh.consumed[i])  # the steps that read these blocks are done
+                    for j, (batch, _, _) in enumerate(self._buffers[i]):
+                        sh.blocks[i][j].copy_(torch.from_numpy(batch[sh.lo : sh.hi]), non_blocking=True)
+                        if has[j]:
+                            sh.resets[i][j].copy_(self._host_resets[i][j][sh.lo : sh.hi], non_blocking=True)
+                    if copy is not None:
+                        sh.copied[i] = torch.cuda.Event()
+                        sh.copied[i].record(copy)
                 if copy is not None:
-                    sh.copied[i] = torch.cuda.Event()
-                    sh.copied[i].record(copy)
-            if copy is not None:
-                torch.cuda.current_stream(sh.device).wait_event(sh.copied[i])
-        t2 = time.perf_counter()
-        n0 = self._n_pending
-        for sh, has in zip(self._shards, has_reset):
-            with sh.on():
-                blocks = sh.blocks[i]
-                for j in range(k):
-                    rst = sh.resets[i][j] if has[j] else None
-                    # the batch's reset, not the shard's: the held spectrum's
-                    # slide advances a host scalar every shard must share
-                    sh.carry, snaps = self.engine.step(sh.carry, blocks[j], sh.meta, rst, any_reset[j])
+                    torch.cuda.current_stream(sh.device).wait_event(sh.copied[i])
+        with span("serve.step", h, "step"):
+            n0 = self._n_pending
+            for sh, has in zip(self._shards, has_reset):
+                with sh.on():
+                    blocks = sh.blocks[i]
+                    for j in range(k):
+                        rst = sh.resets[i][j] if has[j] else None
+                        # the batch's reset, not the shard's: the held
+                        # spectrum's slide advances a host scalar every shard
+                        # must share
+                        sh.carry, snaps = self.engine.step(sh.carry, blocks[j], sh.meta, rst, any_reset[j])
+                        if self._cadence > 1:
+                            self._spectrum_block(sh, (n0 + j) % self._cadence, blocks[j], rst)
+                    if sh.copy_stream is not None:
+                        sh.consumed[i] = torch.cuda.Event()
+                        sh.consumed[i].record(torch.cuda.current_stream(sh.device))
                     if self._cadence > 1:
-                        self._spectrum_block(sh, (n0 + j) % self._cadence, blocks[j], rst)
-                if sh.copy_stream is not None:
-                    sh.consumed[i] = torch.cuda.Event()
-                    sh.consumed[i].record(torch.cuda.current_stream(sh.device))
-                if self._cadence > 1:
-                    snaps = dict(snaps, spectrum=sh.spectrum_snap)
-                leaves = _snapshot_leaves(snaps)
-                # only the small meter leaves are kept for fetch_meters_now
-                sh.meters = [leaf for (_, leaf), m in zip(leaves, self._picked) if m]
-        if self._cadence > 1:
-            self._n_pending = (n0 + k) % self._cadence
-        fetch_now = cfg.fetch != "none" and (self.stats.hops // k) % max(cfg.fetch_every // k, 1) == 0
-        if fetch_now:
-            self._inflight.append((t0, self._pack_shards(), self._packed_layout, self._shard_dims))
-        t3 = time.perf_counter()
+                        snaps = dict(snaps, spectrum=sh.spectrum_snap)
+                    leaves = _snapshot_leaves(snaps)
+                    # only the small meter leaves are kept for fetch_meters_now
+                    sh.meters = [leaf for (_, leaf), m in zip(leaves, self._picked) if m]
+            if self._cadence > 1:
+                self._n_pending = (n0 + k) % self._cadence
+            fetch_now = cfg.fetch != "none" and (self.stats.hops // k) % max(cfg.fetch_every // k, 1) == 0
+            if fetch_now:
+                with span("serve.pack"):
+                    packs = self._pack_shards()
+                self._inflight.append((t0, packs, self._packed_layout, self._shard_dims))
         while len(self._inflight) > cfg.drain_depth:
             self._drain_one()
-        h = self.host_seconds
-        h["assemble"] += t1 - t0
-        h["h2d"] += t2 - t1
-        h["step"] += t3 - t2
 
     def _spectrum_block(self, sh: _Shard, n: int, block: torch.Tensor, reset) -> None:
         """Gather engine block ``n`` of a shard's spectrum hop; step its
@@ -711,16 +724,16 @@ class MeterServer:
     def _drain_one(self) -> None:
         if not self._inflight:
             return
-        t = time.perf_counter()
-        t0, packs, layout, shard_dims = self._inflight.pop(0)
-        for _, done in packs:
-            if done is not None:
-                done.synchronize()
-        self.last_snapshot = _join_meters([host for host, _ in packs], layout, shard_dims)
-        self._last_layout = layout
-        self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
-        self._feed_histories()
-        self.host_seconds["drain"] += time.perf_counter() - t
+        with span("serve.drain", self.host_seconds, "drain"):
+            t0, packs, layout, shard_dims = self._inflight.pop(0)
+            with span("serve.drain_wait"):
+                for _, done in packs:
+                    if done is not None:
+                        done.synchronize()
+            self.last_snapshot = _join_meters([host for host, _ in packs], layout, shard_dims)
+            self._last_layout = layout
+            self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+            self._feed_histories()
         if self.on_drain is not None:
             self.on_drain(self)
 
@@ -830,6 +843,8 @@ class MeterServer:
         return out
 
     def report(self) -> dict:
+        """The serving counters since the start; the latency percentiles
+        are over the last ``LATENCY_WINDOW`` drained fetches."""
         lat = np.asarray(self.latencies_ms, np.float64)
         ecfg = self.engine.config
         hop_s = ecfg.block_frames / ecfg.sample_rate

@@ -1,12 +1,31 @@
-"""Logging, hop counters and device traces (port of ``tracing.py``).
+"""Logging, hop counters and host spans (port of ``tracing.py``).
 
 Logging follows the reference's env-filter convention: ``OPENMETERS_LOG``
 holds ``debug``, or ``openmeters_tpu_torch.engine=debug`` style
 directives, read by :func:`init_tracing`.  :class:`EngineStats` counts the
-serving loop's hops, resets and underruns; :func:`scope` times a block of
-host code; :func:`device_trace` records a ``torch.profiler`` trace (host
-and, where there is a card, device activity) of a block and writes it in
-Chrome's trace format.
+serving loop's hops, resets and underruns.  :class:`span` names a stretch
+of host code: under a running ``torch.profiler`` it is a range on the
+profiler's clock, beside the device activity it launched, and it can add
+its seconds to a counter such as ``MeterServer.host_seconds``.
+
+The spans the program opens (the serving loop's, the transport's and the
+engine's), each inside the one above it:
+
+- ``serve.hop``: one hop of ``MeterServer.advance``;
+  - ``serve.assemble``: ``host_seconds["assemble"]``;
+    - ``serve.copy_wait``: the wait for the last copy out of the buffer set;
+    - ``ingest.assemble``: one ``Transport.assemble`` (the native assembler);
+  - ``serve.h2d``: ``host_seconds["h2d"]``, the copies to the device;
+  - ``serve.step``: ``host_seconds["step"]``;
+    - ``engine.step``: one ``MeterEngine.step`` (its own time is the fold);
+      - ``analyzers.<name>``: each analyzer stepped (``analyzers.spectrum``
+        also in ``MeterEngine.spectrum_step``);
+    - ``serve.pack``: the meter leaves packed for a fetch;
+  - ``serve.drain``: ``host_seconds["drain"]``, a fetch drained (also
+    outside ``serve.hop`` where ``run()``, ``close()`` or a
+    reconfiguration drains);
+    - ``serve.drain_wait``: the wait for the fetch's copy (the rest is the
+      join and the view histories).
 """
 
 from __future__ import annotations
@@ -16,6 +35,8 @@ import dataclasses
 import logging
 import os
 import time
+
+import torch
 
 ROOT = "openmeters_tpu_torch"
 
@@ -68,34 +89,53 @@ class EngineStats:
         )
 
 
-@contextlib.contextmanager
-def scope(log: logging.Logger, name: str, level: int = logging.DEBUG):
-    """Timed structured scope: ``[name] ... done in X ms``."""
-    t0 = time.perf_counter()
-    log.log(level, "[%s] start", name)
-    try:
-        yield
-    finally:
-        log.log(level, "[%s] done in %.2f ms", name, (time.perf_counter() - t0) * 1e3)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_clock = time.perf_counter
+_NOTHING = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def device_trace(out_dir: str | None = None):
-    """Profile the block under ``torch.profiler`` and write its trace to
-    ``out_dir`` (``trace-<pid>-<ns>.json``); yields the profiler, or
-    ``None`` and traces nothing when ``out_dir`` is not given."""
-    if not out_dir:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def span(name: str, into: dict | None = None, key: str | None = None):
+    """``with span(name):`` a stretch of host code.  A profiler range
+    (``torch.profiler.record_function``) only while a profiler runs, so a
+    span costs a check when none does; with ``into``, the stretch's
+    seconds are added to ``into[key]``."""
+    if _profiler_enabled():
+        return _Span(name, into, key)
+    return _NOTHING if into is None else _Timer(into, key)
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+class _Timer:
+    """A span's seconds added to ``into[key]``, with no profiler running."""
+
+    __slots__ = ("_into", "_key", "_t0")
+
+    def __init__(self, into: dict, key: str):
+        self._into, self._key = into, key
+
+    def __enter__(self):
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self._into[self._key] += _clock() - self._t0
+
+
+class _Span:
+    """A span under a running profiler: a range, and with ``into`` its
+    seconds."""
+
+    __slots__ = ("_name", "_into", "_key", "_range", "_t0")
+
+    def __init__(self, name: str, into: dict | None, key: str | None):
+        self._name, self._into, self._key = name, into, key
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self._name)
+        self._range.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, typ, value, tb):
+        if self._into is not None:
+            self._into[self._key] += _clock() - self._t0
+        self._range.__exit__(typ, value, tb)

@@ -20,7 +20,10 @@ to 0): the step keeps capture metadata only, and
 
 State updates in place where an analyzer says so (the framing ring, the
 loudness rings and histograms, the oscilloscope's history rings): a carry
-must not be reused after it has been stepped.
+must not be reused after it has been stepped.  On a card the loudness step
+replays CUDA graphs (:class:`~openmeters_tpu_torch.analyzers.loudness.LoudnessGraphs`):
+the loudness part of the returned carry is the graphs' static state, which
+the next step updates in place.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from openmeters_tpu_torch.analyzers.loudness import LoudnessAnalyzer, LoudnessConfig
+from openmeters_tpu_torch.analyzers.loudness import LoudnessAnalyzer, LoudnessConfig, LoudnessGraphs
 from openmeters_tpu_torch.analyzers.oscilloscope import (
     OscilloscopeAnalyzer,
     OscilloscopeConfig,
@@ -130,6 +133,9 @@ class MeterEngine:
     def __post_init__(self):
         object.__setattr__(self, "config", self.config.resolve())
         self.analyzers  # builds each analyzer, which validates its config
+        # the loudness step's CUDA graphs, made on the first step of each
+        # device and stream count (a server's warm-up)
+        object.__setattr__(self, "loudness_graphs", LoudnessGraphs())
 
     @property
     def spectrum_cadence(self) -> int:
@@ -188,8 +194,8 @@ class MeterEngine:
             analyzers = self.analyzers
             if "loudness" in analyzers:
                 with span("analyzers.loudness"):
-                    new_carry["loudness"], snaps["loudness"] = analyzers["loudness"].step(
-                        carry["loudness"], block, meta.weights, reset_mask
+                    new_carry["loudness"], snaps["loudness"] = self.loudness_graphs.step(
+                        analyzers["loudness"], carry["loudness"], block, meta.weights, reset_mask
                     )
             if "spectrogram" in analyzers:
                 with span("analyzers.spectrogram"):

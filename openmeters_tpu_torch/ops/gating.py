@@ -10,8 +10,11 @@ and the LRA percentiles are read.
 
 The chunk cadence (``chunk_pos``, ``ring_idx``) is shared by all streams and
 kept as host ints, so the boundary test is a host branch: 18 of every 19
-hops touch none of the ``[S, NBINS]`` state.  On a crossing the ring slot
-and the histograms are updated IN PLACE.
+hops touch none of the ``[S, NBINS]`` state.  The boundary offset and the
+ring slots a crossing reads are taken from them on the host
+(:meth:`GatedLoudness.cadence`) and reach the device as an index tensor, so
+every crossing runs the same operations.  On a crossing the ring slot and
+the histograms are updated IN PLACE.
 """
 
 from __future__ import annotations
@@ -78,10 +81,34 @@ class GatedLoudness:
         )
         return {"chunk_pos": None, "ring_idx": None, **dims}
 
-    def push_block(self, carry: dict, wk2, reset_mask=None) -> dict:
-        """One hop of ``wk2 [S, B]`` weighted K-squared samples."""
+    def cadence(self, chunk_pos: int, ring_idx: int) -> tuple[bool, list[int]]:
+        """The host side of a hop at ``chunk_pos``: whether it closes a chunk,
+        and its indices: the frames of the hop that close the old chunk, the
+        ring slot the closed chunk goes to, and the slots 1, 2 and 3 chunks
+        back."""
+        back = [(ring_idx - k) % SHORT_TERM_CHUNKS for k in range(4)]
+        return chunk_pos + self.block_frames >= self.chunk_len, [self.chunk_len - chunk_pos, *back]
+
+    def next_cadence(self, chunk_pos: int, ring_idx: int) -> tuple[int, int]:
+        """``(chunk_pos, ring_idx)`` after a hop at ``chunk_pos``."""
+        pos = chunk_pos + self.block_frames
+        if pos < self.chunk_len:
+            return pos, ring_idx
+        return pos - self.chunk_len, (ring_idx + 1) % SHORT_TERM_CHUNKS
+
+    def push_block(self, carry: dict, wk2, reset_mask=None, idx=None) -> dict:
+        """One hop of ``wk2 [S, B]`` weighted K-squared samples.  ``idx``:
+        :meth:`cadence`'s indices as an int64 tensor on ``wk2``'s device
+        (made here from the carry's cadence when not given)."""
         cl = self.chunk_len
         b = wk2.shape[1]
+        if b != self.block_frames:
+            raise ValueError(f"wk2 of {b} frames a hop, want {self.block_frames}")
+        pos = carry["chunk_pos"]
+        ring_idx = carry["ring_idx"]
+        crossing, ints = self.cadence(pos, ring_idx)
+        if idx is None:
+            idx = torch.tensor(ints, dtype=torch.int64, device=wk2.device)
 
         fs = carry["fs"]
         chunk_e = carry["chunk_e"]
@@ -98,28 +125,22 @@ class GatedLoudness:
             lra = torch.where(reset_mask, 0.0, lra)
 
         total = torch.sum(wk2, dim=1)
-        pos = carry["chunk_pos"]
-        ring_idx = carry["ring_idx"]
         hm_n, hm_e = carry["hist_m_n"], carry["hist_m_e"]
         hs_n, hs_e = carry["hist_s_n"], carry["hist_s_e"]
 
-        if pos + b < cl:
+        if not crossing:
             chunk_e = chunk_e + total
-            chunk_pos = pos + b
         else:
-            chunk_pos = pos + b - cl
-            off = cl - pos  # frames of this hop that close the old chunk
-            before = torch.sum(wk2[:, :off], dim=1)
+            off = idx[0]  # frames of this hop that close the old chunk
+            frames = torch.arange(b, device=wk2.device)
+            before = torch.sum(torch.where(frames < off, wk2, 0.0), dim=1)
             closed = chunk_e + before
             new_chunk = total - before
 
-            def ring_at(k):  # k chunks back (1 = most recent closed)
-                return ring[:, (ring_idx - k) % SHORT_TERM_CHUNKS]
-
-            m_energy = closed + ring_at(1) + ring_at(2) + ring_at(3)
-            s_energy = (
-                closed + torch.sum(ring, dim=1) - ring[:, ring_idx % SHORT_TERM_CHUNKS]
-            )
+            slot = idx[1:2]
+            back = ring.index_select(1, idx[1:])  # [S, 4]: 0, 1, 2, 3 chunks back
+            m_energy = closed + back[:, 1] + back[:, 2] + back[:, 3]
+            s_energy = closed + torch.sum(ring, dim=1) - back[:, 0]
             fs_close = fs + off
             z_m = m_energy / float(MOMENTARY_CHUNKS * cl)
             z_s = s_energy / float(SHORT_TERM_CHUNKS * cl)
@@ -189,11 +210,11 @@ class GatedLoudness:
                 0.0,
             )
 
-            ring[:, ring_idx % SHORT_TERM_CHUNKS] = closed
-            ring_idx = (ring_idx + 1) % SHORT_TERM_CHUNKS
+            ring.index_copy_(1, slot, closed[:, None])
             chunk_e = new_chunk
             pending = torch.zeros_like(pending)
 
+        chunk_pos, ring_idx = self.next_cadence(pos, ring_idx)
         return {
             "chunk_pos": chunk_pos,
             "ring_idx": ring_idx,

@@ -7,7 +7,10 @@ boundary is ``q = W // B`` whole blocks plus one stored suffix.  The
 whole-block part is a running sum with a Kahan-Babuska-Neumaier
 compensated add, re-reduced exactly from the ring every ``refresh_steps``
 pushes.  The ring head is a host int shared by all lanes, so the refresh is
-a host branch.
+a host branch; the ring rows a push reads and writes are taken from it on
+the host (:meth:`BlockWindowedMeans.cadence`) and reach the device as an
+index tensor, so one push runs the same operations at every head (what a
+CUDA graph of it needs).
 
 The re-reduction sums the ring in float64 and stores the result as an f32
 pair (``sums`` the leading part, ``comp`` the rest), so it is exact
@@ -64,11 +67,33 @@ class BlockWindowedMeans:
             "blocks": zeros(*lane_shape, dtype=torch.int32),
         }
 
-    def _exact_sums(self, totals, head: int, blocks):
+    @property
+    def n_leaves(self) -> int:
+        """Windows with a whole-block part (a block leaves them each push)."""
+        return sum(q > 0 for q, _ in self._qr)
+
+    @property
+    def n_indices(self) -> int:
+        """The length of :meth:`cadence`'s index list."""
+        return 1 + self.n_leaves + sum(r > 0 for _, r in self._qr)
+
+    def cadence(self, head: int) -> tuple[bool, list[int]]:
+        """The host side of push ``head``: whether it re-reduces the window
+        sums, and the ring rows it touches: the slot it writes, each
+        whole-block window's leaving block, then each suffix window's pick
+        after the push (a row of the suffix ring seen as ``[k * nw,
+        lanes...]``)."""
+        k, nw = self.ring_blocks, len(self.window_lengths)
+        leave = [(head - q) % k for q, _ in self._qr if q > 0]
+        pick = [((head - q) % k) * nw + w for w, (q, r) in enumerate(self._qr) if r > 0]
+        return (head + 1) % self.refresh_steps == 0, [head % k, *leave, *pick]
+
+    def _exact_sums(self, totals, slot, blocks):
         """Masked re-reduction of the whole-block window sums, in float64,
-        as ``(sums, comp)``: the f32 leading part and the f32 rest."""
+        as ``(sums, comp)``: the f32 leading part and the f32 rest.
+        ``slot`` ``[1]``: the ring row of the newest block."""
         k = self.ring_blocks
-        ages = (head - 1 - torch.arange(k, device=totals.device)) % k
+        ages = (slot - torch.arange(k, device=totals.device)) % k
         ages = ages.reshape((k,) + (1,) * blocks.ndim)
         out = []
         for q, _ in self._qr:
@@ -78,12 +103,18 @@ class BlockWindowedMeans:
         sums = exact.float()
         return sums, (exact - sums.double()).float()
 
-    def push_block(self, carry: dict, values, reset_mask=None) -> dict:
+    def push_block(self, carry: dict, values, reset_mask=None, idx=None) -> dict:
         """Push one ``[B, lanes...]`` block.  Non-finite values count as 0;
-        ``reset_mask [lanes...]`` restarts those lanes' windows."""
+        ``reset_mask [lanes...]`` restarts those lanes' windows.  ``idx``:
+        :meth:`cadence`'s indices as an int64 tensor on the values' device
+        (made here from ``carry["head"]`` when not given)."""
         b = self.block_frames
-        k = self.ring_blocks
         assert values.shape[0] == b
+        head = carry["head"]
+        refresh, ints = self.cadence(head)
+        if idx is None:
+            idx = torch.tensor(ints, dtype=torch.int64, device=values.device)
+        slot, leaves = idx[:1], idx[1 : 1 + self.n_leaves]
         values = torch.where(torch.isfinite(values), values, 0.0).to(torch.float32)
 
         blocks = carry["blocks"]
@@ -94,17 +125,16 @@ class BlockWindowedMeans:
             sums = torch.where(reset_mask[None], 0.0, sums)
             comp = torch.where(reset_mask[None], 0.0, comp)
 
-        head = carry["head"]
-        slot = head % k
         total = torch.sum(values, dim=0)
         totals = carry["totals"]
         suffix = carry["suffix"]
-        totals[slot] = total
-        for w_idx, (_, r) in enumerate(self._qr):
-            if r > 0:
-                suffix[slot, w_idx] = torch.sum(values[b - r :], dim=0)
-            else:
-                suffix[slot, w_idx] = 0.0
+        totals.index_copy_(0, slot, total[None])
+        tails = [
+            torch.sum(values[b - r :], dim=0) if r > 0 else torch.zeros_like(total)
+            for _, r in self._qr
+        ]
+        suffix.index_copy_(0, slot, torch.stack(tails)[None])
+        leaving = totals.index_select(0, leaves)  # [n_leaves, lanes...]
 
         def kbn(s, c, v):
             t = s + v
@@ -115,18 +145,18 @@ class BlockWindowedMeans:
         # the entering one; blocks from before a lane's reset never leave
         blocks_after = torch.clamp_max(blocks + 1, 2**30)
         new_sums, new_comp = [], []
+        j = 0
         for w_idx, (q, _) in enumerate(self._qr):
             s, c = sums[w_idx], comp[w_idx]
             if q > 0:
-                leave = totals[(head - q) % k]
-                s, c = kbn(s, c, -torch.where(blocks_after > q, leave, 0.0))
+                s, c = kbn(s, c, -torch.where(blocks_after > q, leaving[j], 0.0))
                 s, c = kbn(s, c, total)
+                j += 1
             new_sums.append(s)
             new_comp.append(c)
 
-        head_next = head + 1
-        if head_next % self.refresh_steps == 0:
-            sums, comp = self._exact_sums(totals, head_next, blocks_after)
+        if refresh:
+            sums, comp = self._exact_sums(totals, slot, blocks_after)
         else:
             sums = torch.stack(new_sums)
             comp = torch.stack(new_comp)
@@ -136,23 +166,29 @@ class BlockWindowedMeans:
             "suffix": suffix,
             "sums": sums,
             "comp": comp,
-            "head": head_next,
+            "head": head + 1,
             "blocks": blocks_after,
         }
 
-    def means(self, carry: dict):
+    def means(self, carry: dict, pick=None):
         """Trailing means ``[n_windows, lanes...]``; the divisor is
-        ``clamp(samples_pushed, 1, W)``."""
-        k = self.ring_blocks
+        ``clamp(samples_pushed, 1, W)``.  ``pick``: the suffix rows of the
+        last push (the tail of :meth:`cadence`'s indices; made here from
+        ``carry["head"]`` when not given)."""
         b = self.block_frames
-        head = carry["head"]
         blocks = carry["blocks"]
+        if pick is None:
+            ints = self.cadence(carry["head"] - 1)[1][1 + self.n_leaves :]
+            pick = torch.tensor(ints, dtype=torch.int64, device=blocks.device)
+        suffix = carry["suffix"]
+        picked = suffix.reshape(-1, *suffix.shape[2:]).index_select(0, pick)  # [windows with a suffix, lanes...]
         out = []
+        j = 0
         for w_idx, (q, r) in enumerate(self._qr):
             total = carry["sums"][w_idx] + carry["comp"][w_idx]
             if r > 0:
-                pick = carry["suffix"][(head - 1 - q) % k, w_idx]
-                total = total + torch.where(blocks > q, pick, 0.0)
+                total = total + torch.where(blocks > q, picked[j], 0.0)
+                j += 1
             count = torch.clamp(
                 blocks.to(torch.float32) * b,
                 1.0,

@@ -163,9 +163,10 @@ class _Shard:
 def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, shards: list) -> _Pipeline:
     """Warm ``engine`` on each shard's device: two zero hops on a fresh
     carry (and two spectrum hops where the spectrum runs at its own
-    cadence) on a CUDA stream of its own, which builds the kernels and
-    fills the host-built caches (the update tiles, the block-FFT twiddle
-    tables, the lifted matrices, the cuFFT plans); the warm snapshots give
+    cadence) on a CUDA stream of its own, which builds the kernels, records
+    the loudness step's CUDA graphs (a set a shard) and fills the
+    host-built caches (the update tiles, the block-FFT twiddle tables, the
+    lifted matrices, the cuFFT plans); the warm snapshots give
     the meter layout (over a mesh, with each leaf's stream dim).  Touches
     nothing of a server, so it may run on another thread while one serves."""
     cadence = engine.spectrum_cadence
@@ -174,6 +175,8 @@ def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, shards: list) ->
             f"scan_hops ({config.scan_hops}) must be a multiple of the spectrum cadence ({cadence})"
         )
     b, c = engine.config.block_frames, config.channels
+    warm = []  # each shard's warm carry, held until every shard is warm: the
+    # first step of each records a loudness graph set of its own
     for sh in shards:
         s, device = sh.n, sh.device
         stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -182,6 +185,7 @@ def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, shards: list) ->
             zeros = torch.zeros((s, b, c), device=device)
             for _ in range(2):
                 carry, snaps = engine.step(carry, zeros, sh.meta)
+            warm.append(carry)
             if cadence > 1:
                 blocks = torch.zeros((cadence, s, b, c), device=device)
                 sp = carry["spectrum"]
@@ -196,6 +200,7 @@ def _prepare_pipeline(engine: MeterEngine, config: ServeConfig, shards: list) ->
             del carry, snaps
         if stream is not None:
             stream.synchronize()
+    del warm
     layout = [(name, tuple(leaf.shape)) for (name, leaf), m in zip(leaves, picked) if m]
     dims = shard_dims = None
     if len(shards) > 1:
@@ -861,6 +866,9 @@ class MeterServer:
             "latency_ms_p50": round(float(np.percentile(lat, 50)), 3) if lat.size else None,
             "latency_ms_p95": round(float(np.percentile(lat, 95)), 3) if lat.size else None,
             "latency_ms_max": round(float(lat.max()), 3) if lat.size else None,
+            # the loudness step's CUDA graphs (the current engine's): replays,
+            # eager steps, graphs recorded, rebinds
+            "loudness_graphs": dict(self.engine.loudness_graphs.counts),
         }
 
     def close(self) -> None:

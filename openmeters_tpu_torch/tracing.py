@@ -20,6 +20,9 @@ engine's), each inside the one above it:
     - ``engine.step``: one ``MeterEngine.step`` (its own time is the fold);
       - ``analyzers.<name>``: each analyzer stepped (``analyzers.spectrum``
         also in ``MeterEngine.spectrum_step``);
+        - ``analyzers.loudness.replay``: the loudness step replayed from a
+          CUDA graph (``analyzers.loudness.eager``: stepped eagerly, off a
+          card);
     - ``serve.pack``: the meter leaves packed for a fetch;
   - ``serve.drain``: ``host_seconds["drain"]``, a fetch drained (also
     outside ``serve.hop`` where ``run()``, ``close()`` or a

@@ -764,3 +764,192 @@ def test_tui_keys_drive_a_card_server(card):
         os.close(w)
         server.close()
     assert "stream #2" in paint.getvalue() and "LUFS" in paint.getvalue()
+
+
+# -- the loudness step's CUDA graphs ------------------------------------------------
+
+
+def _loudness_only(**kw):
+    from openmeters_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(channels=2, spectrogram=None, spectrum=None, oscilloscope=None, stereometer=None,
+                        waveform=None, **kw)
+
+
+def _loudness_leaves(carry, snap):
+    leaves = torch.utils._pytree.tree_flatten_with_path(carry)[0]
+    return [(torch.utils._pytree.keystr(p), v) for p, v in leaves] + list(snap._asdict().items())
+
+
+def _assert_same_loudness(ours, ref, where):
+    for (name, a), (_, b) in zip(_loudness_leaves(*ours), _loudness_leaves(*ref), strict=True):
+        if isinstance(a, torch.Tensor):
+            gap = float((a.double() - b.double()).abs().max())
+            assert a.device == b.device and torch.equal(a, b), (where, name, gap)
+        else:
+            assert a == b, (where, name)
+
+
+def _graphs_against_eager(card, hops, resets, s=37, between=None):
+    """``hops`` engine hops on the card (the loudness step replayed from its
+    graphs) against the analyzer's eager step on the card, leaf for leaf,
+    bit for bit, every hop; ``between(i, carry)`` may replace the engine's
+    carry before hop ``i``."""
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
+
+    engine = MeterEngine(_loudness_only())
+    analyzer = engine.analyzers["loudness"]
+    meta = StreamMeta(*(t.to(card) for t in StreamMeta.default(s, channels=2, pad_channels=2)))
+    audio = torch.from_numpy(_stereo_audio(s, hops * 256, seed=41)).to(card)
+    carry, ref = engine.init(s, device=card), analyzer.init(s, device=card)
+    for i in range(hops):
+        if between is not None:
+            carry = between(i, engine, carry)
+        blk = audio[:, i * 256 : (i + 1) * 256].contiguous()
+        rm = resets.get(i)
+        carry, snaps = engine.step(carry, blk, meta, None if rm is None else rm.to(card))
+        ref, ref_snap = analyzer.step(ref, blk, meta.weights, None if rm is None else rm.to(card))
+        _assert_same_loudness((carry["loudness"], snaps["loudness"]), (ref, ref_snap), f"hop {i}")
+    return engine.loudness_graphs.counts
+
+
+@pytest.mark.cuda
+def test_loudness_graphs_replay_matches_eager(card):
+    """300 hops at S=37, reset masks at hops 40, 41 and 200: every hop a
+    replay, the same bits as the eager step (the same kernels), every
+    pattern recorded once."""
+    resets = {40: torch.arange(37) % 3 == 0, 41: torch.arange(37) == 5, 200: torch.arange(37) >= 30}
+    counts = _graphs_against_eager(card, 300, resets)
+    assert counts == {"replays": 300, "eager": 0, "captures": 8, "rebinds": 1}
+
+
+@pytest.mark.cuda
+def test_loudness_graphs_rebind_after_a_restore(card, tmp_path):
+    """A checkpoint written and restored at hop 150 of 250: the restored
+    carry is copied into the graphs' static carry (a rebind), and the run
+    goes on bit for bit with the uninterrupted eager one."""
+    from openmeters_tpu_torch.checkpoint import load_state, save_state
+
+    path = str(tmp_path / "carry.npz")
+
+    def restore(i, engine, carry):
+        if i != 150:
+            return carry
+        save_state(path, engine, carry)
+        return load_state(path, engine, device=card)
+
+    counts = _graphs_against_eager(card, 250, {100: torch.arange(37) == 2}, between=restore)
+    assert counts == {"replays": 250, "eager": 0, "captures": 8, "rebinds": 2}
+
+
+@pytest.mark.cuda
+def test_loudness_graphs_snapshot_outlives_the_next_hop(card):
+    """A snapshot held across the next replays keeps its values (each
+    replay hands out a copy of the packed meters), over a chunk crossing,
+    where the integrated loudness the carry holds moves."""
+    from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
+
+    s = 6
+    engine = MeterEngine(_loudness_only())
+    meta = StreamMeta(*(t.to(card) for t in StreamMeta.default(s, channels=2, pad_channels=2)))
+    audio = torch.from_numpy(_stereo_audio(s, 120 * 256, seed=43)).to(card)
+    carry = engine.init(s, device=card)
+    held = []
+    for i in range(120):
+        carry, snaps = engine.step(carry, audio[:, i * 256 : (i + 1) * 256].contiguous(), meta)
+        held.append((snaps["loudness"], [t.clone() for t in snaps["loudness"]]))
+    for i, (snap, copy) in enumerate(held):
+        for a, b in zip(snap, copy, strict=True):
+            assert torch.equal(a, b), i
+    integrated = {tuple(copy[5].tolist()) for _, copy in held}
+    assert len(integrated) > 2  # the integrated loudness moved during the run
+
+
+@pytest.mark.cuda
+def test_loudness_graphs_follow_settings_and_layout(card):
+    """A card server (its loudness replayed) against a CPU one, S=8, every
+    advance's meters by the bars of ``utils/parity.py``: a floor change by
+    ``apply_settings`` at advance 40 (the migrated carry rebinds the new
+    engine's graphs), a ``set_stream_layout`` at 60 (the weights that reach
+    the graphs), and at 90 an ``apply_settings_async`` whose graphs are
+    recorded on its own thread while the server serves."""
+    import dataclasses
+
+    from openmeters_tpu_torch.analyzers.loudness import LoudnessConfig
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.utils.parity import check_meters
+
+    s = 8
+    engine = _loudness_only()
+    cfg = ServeConfig(n_streams=s, engine=engine, realtime=False, fetch="meters", fetch_every=1, coalesce_blocks=1)
+    servers = [MeterServer(cfg, device=card), MeterServer(cfg, device="cpu")]
+    audio = _stereo_audio(s, 400 * 256, seed=47)
+    threads, served_while_recording = [], 0
+
+    def with_floor(db):
+        return dataclasses.replace(engine, loudness=LoudnessConfig(floor_db=db))
+
+    try:
+        for i in range(400):
+            if i == 40:
+                for srv in servers:
+                    srv.apply_settings(with_floor(-95.0))
+                # recorded and warmed by apply_settings; the migrated carry rebinds on the next hop
+                assert servers[0].engine.loudness_graphs.counts == {"replays": 2, "eager": 0, "captures": 8,
+                                                                    "rebinds": 1}
+            if i == 60:
+                for srv in servers:
+                    srv.set_stream_layout(3, 1)
+            if i == 90:
+                threads = [srv.apply_settings_async(with_floor(-90.0)) for srv in servers]
+            if threads and threads[0].is_alive():
+                served_while_recording += 1
+            for srv in servers:
+                for st in range(s):
+                    srv.transport.push_pcm(st, audio[st, i * 256 : (i + 1) * 256], int(i * 256 / 48e3 * 1e9))
+                srv.advance()
+            check_meters(*(srv.last_meters() for srv in servers), f"advance {i}")
+            if i > 100 and not any(srv.reconfig_pending for srv in servers):
+                break
+        counts = servers[0].report()["loudness_graphs"]
+    finally:
+        for t in threads:
+            t.join(timeout=60)
+        for srv in servers:
+            srv.close()
+    assert all(srv.engine.config.loudness.floor_db == -90.0 for srv in servers)
+    assert served_while_recording > 0
+    # the new engine: recorded on its thread, warmed there (one rebind), then
+    # the migrated live carry (one more)
+    assert counts["captures"] == 8 and counts["rebinds"] == 2 and counts["replays"] > 2 and counts["eager"] == 0
+
+
+@pytest.mark.cuda
+def test_loudness_graphs_on_a_two_shard_mesh_of_one_card(card):
+    """Two shards of one card each take a graph set of their own: the
+    served meters against an unsharded CPU server's, 60 advances."""
+    from openmeters_tpu_torch.engine.sharding import StreamMesh
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+    from openmeters_tpu_torch.utils.parity import check_meters
+
+    s = 8
+    cfg = ServeConfig(n_streams=s, engine=_loudness_only(), realtime=False, fetch="meters", fetch_every=1,
+                      coalesce_blocks=1)
+    servers = [MeterServer(cfg, mesh=StreamMesh(["cuda:0"] * 2), device=card), MeterServer(cfg, device="cpu")]
+    audio = _stereo_audio(s, 60 * 256, seed=53)
+    try:
+        for i in range(60):
+            for srv in servers:
+                for st in range(s):
+                    srv.transport.push_pcm(st, audio[st, i * 256 : (i + 1) * 256], int(i * 256 / 48e3 * 1e9))
+                srv.advance()
+            check_meters(*(srv.last_meters() for srv in servers), f"advance {i}")
+        graphs = servers[0].engine.loudness_graphs
+    finally:
+        for srv in servers:
+            srv.close()
+    assert len(graphs._sets[(torch.device("cuda", 0), s // 2)]) == 2  # noqa: SLF001
+    # warm-up: one set a shard (two rebinds); serving: the live carries (two
+    # more); the eager steps are the meta-device shape probes of the layout
+    counts = {k: graphs.counts[k] for k in ("replays", "captures", "rebinds")}
+    assert counts == {"replays": 2 * 2 + 2 * 60, "captures": 16, "rebinds": 4}

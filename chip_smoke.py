@@ -11,14 +11,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    for ``mma.sync``) in the SASS of the two kernels that run their delta
    products on the tensor cores, B1a and B2 (``cuobjdump -sass``);
 3. the ``sliding_hop`` kernel against its plain PyTorch version on the same
-   card tensors, at the flagship shape and a small Blackman-Harris shape,
-   for ready in {0, 1, cols}, plus both versions' times at the flagship
-   shape;
+   card tensors, at the flagship's former shape (2048/64, S=8192) and a
+   small Blackman-Harris shape, for ready in {0, 1, cols}, plus both
+   versions' times at the first; (3b) the ``classic_columns`` kernel, the
+   flagship's spectrogram, against its plain version in float64 from the
+   same ring at the flagship shape, 64/16 Blackman-Harris and 32768/1024,
+   plus the kernel's, the plain version's and the f32 ``torch.fft``
+   chain's times at the flagship shape;
 4. the flagship engine through the public API on the card against the
    same on the CPU (S=32, 200 hops, two streams reset at hop 90);
 5. the flagship engine at S=8192 stereo streams: 40 warm-up hops, then 200
-   timed hops with every output consumed, counting kernel launches, and a
-   profile of 20 more;
+   timed hops with every output consumed, counting kernel launches (one
+   ``classic_columns`` a hop, no ``sliding_hop``), and a profile of 20
+   more;
 6. the ``reassigned_sliding_hop`` kernel against its plain version at the
    default reassigned shape (S=8192, n 2048, hop 64, 4 columns, 1025 bins,
    Hann) and a small Blackman-Harris zero-padded shape (stencil reach 6),
@@ -412,6 +417,63 @@ def phase3_kernel(dev) -> dict:
     return result
 
 
+def phase3b_classic_columns(dev) -> dict:
+    """The ``classic_columns`` kernel against its plain version in float64
+    (the per-column chain on the frames ``FrameBuffer.extract`` takes from
+    the same ring) for ready in {0, 1, cols}: at the flagship shape (S=8192,
+    2048/64, 4 columns, Hann), 64/16 Blackman-Harris and 32768/1024; the
+    ring holds noise 80 dB down with a loud stretch at 0 dBFS, so some
+    windows hold its tail.  Codes within 2 at bins within 60 dB of the
+    column's peak; at the flagship shape the kernel, the plain version and
+    the f32 ``torch.fft`` chain (the library call) timed, with the bound."""
+    from openmeters_tpu_torch.ops.classic_columns import classic_columns, classic_columns_reference
+    from openmeters_tpu_torch.ops.framing import FrameBuffer
+    from openmeters_tpu_torch.utils.level import DB_FLOOR
+    from openmeters_tpu_torch.utils.windows import WindowKind, fft_bin_normalization, window_coefficients
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    result = {}
+    for label, n, hop, kind, s in (("flagship", 2048, 64, WindowKind.HANN, FLAGSHIP_S),
+                                   ("64/16 blackman-harris", 64, 16, WindowKind.BLACKMAN_HARRIS, 37),
+                                   ("32768/1024", 32768, 1024, WindowKind.HANN, 12)):
+        fb = FrameBuffer(n, hop, 256)
+        cols = fb.cols_cap
+        buf = torch.randn((s, fb.ring_len), generator=gen, device=dev) * 1e-4
+        loud = slice(fb.cap - n // 2, fb.cap - n // 4)
+        buf[:, loud] = torch.randn((s, n // 4), generator=gen, device=dev)
+        window = torch.from_numpy(window_coefficients(kind, n)).to(dev)
+        norm = torch.from_numpy(fft_bin_normalization(window_coefficients(kind, n), n)).to(dev)
+        for ready in sorted({0, 1, cols}):
+            info = {"buf": buf, "base": fb.cap - n, "ready": ready}
+            got = classic_columns(fb, info, window, norm, floor_db=DB_FLOOR)
+            ref = classic_columns_reference(fb.extract(info).double(), window.double(), norm.double(),
+                                            floor_db=DB_FLOOR).to(torch.int32)
+            d = (got.to(torch.int32) - ref).abs()
+            held = resolved_bins(ref, torch.ones(ref.shape[:2], dtype=torch.bool, device=dev))
+            code_diff = int((d * held).max())
+            log(f"phase 3b {label} S={s} cols={cols} ready={ready}: codes max diff {code_diff} within "
+                f"{RESOLVED_DB:g} dB of the column peak against float64 ({int(d.max())} over all bins)")
+            check(code_diff <= 2, f"phase 3b {label} ready={ready}: codes differ by {code_diff}")
+            if label == "flagship" and ready == cols:
+                result = {"max_abs_err": float(code_diff), "max_code_diff": code_diff}
+        if label == "flagship":
+            info = {"buf": buf, "base": fb.cap - n, "ready": cols}
+            reps = 20
+            kern = lambda: classic_columns(fb, info, window, norm, floor_db=DB_FLOOR)  # noqa: E731, B023
+            plain = lambda: classic_columns_reference(  # noqa: E731
+                fb.extract(info).double(), window.double(), norm.double(), floor_db=DB_FLOOR)  # noqa: B023
+            p1, k1, k2, p2 = (time_cuda(f, reps) for f in (plain, kern, kern, plain))
+            result["ms"], result["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            result["library_ms"] = time_cuda(
+                lambda: classic_columns_reference(fb.extract(info), window, norm, floor_db=DB_FLOOR), reps)  # noqa: B023
+            bins = n // 2 + 1
+            moved = s * (n + (cols - 1) * hop) * 4 + s * cols * bins * 2 + n * 4 + bins * 4
+            result.update(bound(moved, fft_flops(n // 2, s * cols)))
+            log(f"phase 3b timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain (float64) {p1:.4f}/{p2:.4f} ms, "
+                f"the f32 torch.fft chain {result['library_ms']:.4f} ms, {fmt_bound(result)} [{card_line()}]")
+    return result
+
+
 def phase4_slice(dev) -> None:
     from openmeters_tpu_torch.api import AnalysisSession
     from openmeters_tpu_torch.engine import MeterEngine
@@ -459,9 +521,10 @@ def phase4_slice(dev) -> None:
     check(worst["true_peak"] <= 1e-3, f"true peak differs by {worst['true_peak']}")
 
 
-def phase5_flagship(dev) -> int:
+def phase5_flagship(dev) -> dict:
     from openmeters_tpu_torch.api import AnalysisSession
     from openmeters_tpu_torch.engine import MeterEngine
+    from openmeters_tpu_torch.ops.classic_columns import classic_columns
     from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
 
     s, b = FLAGSHIP_S, 256
@@ -493,7 +556,7 @@ def phase5_flagship(dev) -> int:
         consume(session.feed(blocks[i % bank]))
     torch.cuda.synchronize()
 
-    sliding_hop.launches = 0
+    sliding_hop.launches = classic_columns.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -504,7 +567,7 @@ def phase5_flagship(dev) -> int:
     stop.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sliding_hop.launches
+    launches = {"classic_columns": classic_columns.launches, "sliding_hop": sliding_hop.launches}
 
     ms = start.elapsed_time(stop) / TIMED_HOPS
     realtime = s * (b / 48_000.0) / (ms / 1e3)
@@ -514,7 +577,7 @@ def phase5_flagship(dev) -> int:
         f"phase 5 flagship S={s}: {ms:.4f} ms/hop (CUDA events; host wall {1e3 * wall / TIMED_HOPS:.4f} ms/hop), "
         f"{realtime:.1f} streams realtime, peak memory {peak / 2**30:.3f} GiB [{card}]"
     )
-    check(launches == TIMED_HOPS, f"sliding_hop launched {launches} times in {TIMED_HOPS} hops")
+    check(launches == {"classic_columns": TIMED_HOPS, "sliding_hop": 0}, f"launches in {TIMED_HOPS} hops: {launches}")
     check(bool(torch.isfinite(sink)), "non-finite output")
     lo = snaps["loudness"]
     for f in lo._fields:
@@ -1928,6 +1991,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
     With ``mesh`` the server cuts its streams over it, and
     ``check_join(server)`` runs after the profile."""
     from openmeters_tpu_torch.ingest import Feeder
+    from openmeters_tpu_torch.ops.classic_columns import classic_columns
     from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
     from openmeters_tpu_torch.ops.iir import three_band_scan
     from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
@@ -1953,8 +2017,8 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
         torch.cuda.synchronize()
         server.stats, server.latencies_ms = EngineStats(), []
         server.host_seconds = dict.fromkeys(server.host_seconds, 0.0)
-        counters = {c.__name__: c for c in (sliding_hop, reassigned_sliding_hop, corr_dots_sums_ring,
-                                            window_rows, three_band_scan)}
+        counters = {c.__name__: c for c in (classic_columns, sliding_hop, reassigned_sliding_hop,
+                                            corr_dots_sums_ring, window_rows, three_band_scan)}
         for c in counters.values():
             c.launches = 0
         t1 = time.perf_counter()
@@ -2355,7 +2419,8 @@ def phase21a_serve_socket(dev, counters: dict, streams: int = 4096, duration: fl
     check(not missing, f"phase 21a: links missing from the report: {sorted(missing)[:8]}")
     for rate, s in m.servers.items():
         check(s.engine.config.spectrogram.use_reassignment, f"phase 21a: the {rate} Hz bucket never adopted the swap")
-        check(probe.quiet[rate]["sliding_hop"] > 0, f"phase 21a: B1a never launched in the {rate} Hz bucket")
+        check(probe.quiet[rate]["classic_columns"] > 0,
+              f"phase 21a: classic_columns never launched in the {rate} Hz bucket")
         # 2048/64 slides at 48 kHz (B2); 235-frame blocks do not align the
         # sliding ring's writes, so at 44.1 kHz it runs a column at a time (B3)
         sg = s.engine.analyzers["spectrogram"]
@@ -2435,10 +2500,11 @@ def phase21_cli(dev) -> dict:
     from openmeters_tpu_torch.ops.reassigned_columns import reassigned_columns
     from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
     from openmeters_tpu_torch.ops.rows import window_rows
+    from openmeters_tpu_torch.ops.classic_columns import classic_columns
     from openmeters_tpu_torch.ops.sliding_hop import sliding_hop, sliding_hop_spectra
 
-    counters = {c.__name__: c for c in (sliding_hop, sliding_hop_spectra, reassigned_sliding_hop, reassigned_columns,
-                                        corr_dots_sums_ring, window_rows, three_band_scan)}
+    counters = {c.__name__: c for c in (classic_columns, sliding_hop, sliding_hop_spectra, reassigned_sliding_hop,
+                                        reassigned_columns, corr_dots_sums_ring, window_rows, three_band_scan)}
     served = phase21a_serve_socket(dev, counters)
     torch.cuda.empty_cache()
     phase21b_analyze(dev, counters)
@@ -2828,10 +2894,10 @@ def phase23a_flagship_mesh(dev) -> dict:
     ``dev``: 200 hops from 16 host blocks, resets of streams 3 and 4097 at
     hop 60 and of 8000 at 140; every 10th hop, the reset hops and the last
     held by the bars of ``utils/parity.py``, every hop's leaves checked for
-    bit equality; B1a launched once a shard a hop."""
+    bit equality; ``classic_columns`` launched once a shard a hop."""
     from openmeters_tpu_torch.engine import MeterEngine, StreamMeta, make_mesh, sharded_step
     from openmeters_tpu_torch.engine.sharding import gather_carry, gather_snapshots
-    from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
+    from openmeters_tpu_torch.ops.classic_columns import classic_columns
     from openmeters_tpu_torch.utils.parity import check_snapshots
 
     mesh = make_mesh()
@@ -2859,9 +2925,9 @@ def phase23a_flagship_mesh(dev) -> dict:
         if h in resets:
             rst = torch.zeros((s,), dtype=torch.bool)
             rst[resets[h]] = True
-        before = sliding_hop.launches
+        before = classic_columns.launches
         carry, snaps = step(carry, blocks[h % bank], meta, rst)
-        launches += sliding_hop.launches - before
+        launches += classic_columns.launches - before
         ref, rsnaps = engine.step(ref, blocks[h % bank].to(dev, non_blocking=True), dev_meta,
                                   None if rst is None else rst.to(dev))
         ours = gather_snapshots(snaps, step.snapshot_dims, device=dev)
@@ -2880,10 +2946,10 @@ def phase23a_flagship_mesh(dev) -> dict:
         f"{built:.2f} s; {held} hops held by the bars of utils/parity.py; snapshot leaves bit-equal at every hop: "
         f"{len(snap_equal)} of {len(equal)} ({', '.join(snap_equal)}); bit-equal at some hops only: "
         f"{', '.join(f'{k} {v}' for k, v in sorted(equal.items()) if v != hops) or 'none'}; carry leaves "
-        f"bit-equal after the run: {sum(carry_equal.values())} of {len(carry_equal)}; B1a launches {launches} "
+        f"bit-equal after the run: {sum(carry_equal.values())} of {len(carry_equal)}; classic_columns launches {launches} "
         f"({launches / hops:.2f} a hop, {n} shard(s)) [{card_line()}]"
     )
-    check(launches == hops * n, f"B1a launched {launches} times, want {hops * n}")
+    check(launches == hops * n, f"classic_columns launched {launches} times, want {hops * n}")
     del carry, ref, blocks
     torch.cuda.empty_cache()
     return {"shards": n, "launches": launches, "snapshot_bit_equal": len(snap_equal), "snapshot_leaves": len(equal),
@@ -3083,7 +3149,7 @@ def phase23c_served_two_shards(dev, served20a: dict, served20b: dict) -> dict:
     for label, cfg, expect, base in (
         ("phase 23c literal default", EngineConfig(), ("reassigned_sliding_hop", "corr_dots_sums_ring",
                                                         "window_rows", "three_band_scan"), served20a),
-        ("phase 23c flagship", flagship_config(), ("sliding_hop",), served20b),
+        ("phase 23c flagship", flagship_config(), ("classic_columns",), served20b),
     ):
         got = phase20_serving_s8192(dev, label, cfg, expect, mesh=mesh, check_join=check_join,
                                     advances=TIMED_HOPS // 2)
@@ -3164,13 +3230,14 @@ def drift_audio(s: int, hops: int, seed: int = SEED + 24) -> np.ndarray:
 
 
 class f32_plain_hop:
-    """Within it the sliding spectrogram's hop runs as its plain version in
-    float32 on every device: ``reassigned_sliding_hop_reference`` in place
-    of B2 (and of the CPU's float64 hop), ``sliding_hop_reference`` in
-    place of B1a."""
+    """Within it the spectrogram's hop runs as its plain version in float32
+    on every device: ``reassigned_sliding_hop_reference`` in place of B2
+    (and of the CPU's float64 hop), ``sliding_hop_reference`` in place of
+    B1a, ``classic_columns_reference`` on the extracted frames in place of
+    ``classic_columns``."""
 
     def __enter__(self):
-        from openmeters_tpu_torch.ops import sliding_reassigned, sliding_stft
+        from openmeters_tpu_torch.ops import classic_columns, sliding_reassigned, sliding_stft
         from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop_reference
         from openmeters_tpu_torch.ops.sliding_hop import sliding_hop_reference
 
@@ -3181,14 +3248,20 @@ class f32_plain_hop:
         def classic(ready, *args, tiles=None, **kw):
             return sliding_hop_reference(ready, *args, **kw)
 
-        self.saved = (sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop)
+        def columns(frames, info, window, norm, *, floor_db):
+            return classic_columns.classic_columns_reference(frames.extract(info), window, norm, floor_db=floor_db)
+
+        self.saved = (sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop,
+                      classic_columns.classic_columns)
         sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop = reassigned, classic
+        classic_columns.classic_columns = columns
         return self
 
     def __exit__(self, *exc):
-        from openmeters_tpu_torch.ops import sliding_reassigned, sliding_stft
+        from openmeters_tpu_torch.ops import classic_columns, sliding_reassigned, sliding_stft
 
-        sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop = self.saved
+        (sliding_reassigned.reassigned_sliding_hop, sliding_stft.sliding_hop,
+         classic_columns.classic_columns) = self.saved
 
 
 def fmt_drift(d: dict) -> str:
@@ -3370,24 +3443,23 @@ def state_errors(ours, exact) -> list:
 def exact_last_column(engine, carry: dict):
     """The spectrogram's sliding state after the hop that produced
     ``carry`` and its last column, recomputed exactly in float64 on the
-    host from the rings.  Classic: the state is the rFFT of the last
-    window, the column the per-column path (DC removed, windowed rFFT, dB,
-    u16 codes) on it.  Reassigned: the eight states are the rFFTs of the
-    last window's raw and Hilbert crops and their ramp-weighted copies, the
-    column the hop's corrections on them.  Returns ``(states, exact
-    states, codes [S, bins] or (freq, time, power))``."""
+    host from the rings.  Classic (no state: each column comes from its
+    frame): the column the per-column path (DC removed, windowed rFFT, dB,
+    u16 codes) on the last window.  Reassigned: the eight states are the
+    rFFTs of the last window's raw and Hilbert crops and their
+    ramp-weighted copies, the column the hop's corrections on them.
+    Returns ``(states, exact states, codes [S, bins] or (freq, time,
+    power))``."""
     from openmeters_tpu_torch.ops.reassigned_hop import _column
     from openmeters_tpu_torch.ops.sliding_reassigned import STATE_KEYS
 
     sg = engine.analyzers["spectrogram"]
     host = _carry_to(carry["spectrogram"], "cpu")
-    if sg.use_sliding:
+    if not sg.config.use_reassignment:
         fb = sg._frames  # noqa: SLF001
         info = last_frames(sg, host, fb.cols_cap)
         frames = fb.extract(info)[:, -1].double()
-        spec = torch.fft.rfft(frames, n=fb.read_len)
-        states = (host["sdft"]["re"], host["sdft"]["im"])
-        return states, (spec.real, spec.imag), sg._classic(frames[:, None], None).codes[:, 0]  # noqa: SLF001
+        return (), (), sg._classic(frames[:, None], None).codes[:, 0]  # noqa: SLF001
     sr = sg._sliding_reassigned  # noqa: SLF001
     info = last_frames(sg, host, sr.cols_cap)
     info = {**info, "buf": info["buf"].double(), "base": info["base"] + (sr.cols_cap - 1) * sr.hop}
@@ -3406,8 +3478,7 @@ def exact_errors(engine, carry: dict, snaps: dict) -> dict:
     bars), the time where the exact time offset lies within the window
     (``window_hops``: elsewhere B sits near a zero and the time is the
     ratio of two cancelling sums).  With each state's distance from the
-    exact one as a share of its row maximum (``state_u``: U, or the
-    classic state; ``state_v``: the ramp-weighted V)."""
+    exact one as a share of its row maximum (``state_u``: U; ``state_v``: the ramp-weighted V)."""
     from openmeters_tpu_torch.utils.parity import reassigned_errors as errors_of
 
     sg = snaps["spectrogram"]
@@ -3418,7 +3489,7 @@ def exact_errors(engine, carry: dict, snaps: dict) -> dict:
     if isinstance(exact, torch.Tensor):
         ref = exact.to(torch.int32)
         d = ((sg.codes[:, -1].cpu().to(torch.int32) - ref).abs() * resolved_bins(ref, valid)).max()
-        return {"state_u": max(errs), "codes": int(d)}
+        return {"codes": int(d)}
     sr = engine.analyzers["spectrogram"]._sliding_reassigned  # noqa: SLF001
     err, _ = errors_of((sg.freq_hz[:, -1].cpu(), sg.time_offset[:, -1].cpu(), sg.power[:, -1].cpu()),
                        exact, valid, drift=True, window_hops=sr.n / sr.hop)
@@ -3606,21 +3677,21 @@ def load_ebur_ref():
     return module
 
 
-LONG_RUNS = {"flagship": (flagship_config, "sliding_hop"), "reassigned default": (reassigned_config,
-                                                                                  "reassigned_sliding_hop")}
+LONG_RUNS = {"flagship": (flagship_config, "classic_columns"), "reassigned default": (reassigned_config,
+                                                                                      "reassigned_sliding_hop")}
 
 
 def phase24b_child(name: str) -> int:
     """``python3 chip_smoke.py --phase24b NAME``: one long run of phase 24b
     in a process of its own, on the kernel library phase 2 built; its
     result as JSON on the last line."""
-    from openmeters_tpu_torch.ops import _build, reassigned_hop, sliding_hop
+    from openmeters_tpu_torch.ops import _build, classic_columns, reassigned_hop
 
     dev = torch.device("cuda", 0)
     torch.set_num_threads(1)  # the host thread paces the run; 24a's CPU hop runs beside it
     _build.load_library()
     config, counter = LONG_RUNS[name]
-    counter = getattr(reassigned_hop if counter.startswith("reassigned") else sliding_hop, counter)
+    counter = getattr(reassigned_hop if counter.startswith("reassigned") else classic_columns, counter)
     out = phase24b_long_run(dev, f"phase 24b {name}", config(), counter)
     print(json.dumps(out, default=float))
     return 0
@@ -3687,6 +3758,7 @@ def main() -> int:
         log(f"phase 2 {name}: tensor-core instructions {', '.join(ops)} in its SASS")
 
     kernel = phase3_kernel(dev)
+    columns_kernel = phase3b_classic_columns(dev)
     phase4_slice(dev)
     launches = phase5_flagship(dev)
     hop_kernel = phase6_reassigned_hop(dev)
@@ -3715,7 +3787,7 @@ def main() -> int:
                                       ("reassigned_sliding_hop", "corr_dots_sums_ring", "window_rows",
                                        "three_band_scan"))
     torch.cuda.empty_cache()
-    served20b = phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("sliding_hop",))
+    served20b = phase20_serving_s8192(dev, "phase 20b", flagship_config(), ("classic_columns",))
     torch.cuda.empty_cache()
     phase21_cli(dev)
     torch.cuda.empty_cache()
@@ -3745,7 +3817,10 @@ def main() -> int:
     print(json.dumps({
         "kernels": [
             entry("sliding_hop", "openmeters_tpu_torch/csrc/sliding_hop_deltas.cu",
-                  "openmeters_tpu/ops/pallas_sliding.py:381", launches, kernel),
+                  "openmeters_tpu/ops/pallas_sliding.py:381", launches["sliding_hop"], kernel),
+            # the classic spectrogram's columns, in place of B1a on that path
+            entry("classic_columns", "openmeters_tpu_torch/csrc/classic_columns.cu",
+                  "openmeters_tpu/ops/pallas_sliding.py:381", launches["classic_columns"], columns_kernel),
             entry("reassigned_sliding_hop", "openmeters_tpu_torch/csrc/reassigned_hop.cu",
                   "openmeters_tpu/ops/pallas_sliding_reassigned.py:229", hop_launches, hop_kernel),
             entry("reassigned_columns", "openmeters_tpu_torch/csrc/reassigned_columns.cu",

@@ -1,12 +1,14 @@
 """Spectrogram: classic STFT and Auger-Flandrin time-frequency reassignment
 (port of ``analyzers/spectrogram.py``).
 
-- **Classic**: DC-removed, windowed, zero-padded rFFT per hop; per-bin power
-  packed to u16 codes over the fixed [-144, +12] dB domain.  Unpadded
-  power-of-two FFTs with ``hop <= fft/2`` ride the sliding DFT
-  (``ops/sliding_stft.py``: the B1a hop for small ``[hop, bins]``, the B1b
-  hop on rFFT'd delta spectra past that, as on the TPU); every other
-  config takes one ``torch.fft.rfft`` per column.
+- **Classic**: DC-removed, windowed, zero-padded rFFT per column; per-bin
+  power packed to u16 codes over the fixed [-144, +12] dB domain.  Each
+  column comes from its own frame, as upstream computes it: unpadded
+  power-of-two FFTs up to 32768 points through ``ops/classic_columns.py``
+  (on a card its kernel reads the frames from the framing ring), every
+  other config through ``torch.fft.rfft``.  The sliding DFT is not used
+  here: its f32 state carries a loud section's rounding into the quiet
+  columns after it (the JAX package slides, and parts from float64 there).
 - **Reassigned** (the default): per column the analytic signal over
   ``hilbert_len = next_pow2(2 * window)`` samples, the spectra windowed by
   h, dh/dt and (t - c) h, and per bin the frequency correction
@@ -32,16 +34,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from openmeters_tpu_torch.ops import classic_columns as ccols
 from openmeters_tpu_torch.ops import reassigned_columns as rcols
 from openmeters_tpu_torch.ops.framing import FrameBuffer
-from openmeters_tpu_torch.ops.sliding_hop import (
-    CLASSIC_DB_STORE_LO,
-    CLASSIC_DB_STORE_RANGE,
-    pack_classic_db,
-)
+from openmeters_tpu_torch.ops.sliding_hop import CLASSIC_DB_STORE_LO, CLASSIC_DB_STORE_RANGE
 from openmeters_tpu_torch.ops.sliding_reassigned import SlidingReassigned
-from openmeters_tpu_torch.ops.sliding_stft import SlidingSTFT
-from openmeters_tpu_torch.utils.level import DB_FLOOR, power_to_db, sanitize_sample_rate
+from openmeters_tpu_torch.utils.level import DB_FLOOR, sanitize_sample_rate
 from openmeters_tpu_torch.utils.windows import (
     WindowKind,
     derivative_window,
@@ -142,19 +140,15 @@ class SpectrogramAnalyzer:
         return reassigned_power_scale(w, self.padded_fft)
 
     @property
-    def _sliding(self) -> SlidingSTFT:
-        cfg = self.config
-        return SlidingSTFT(cfg.fft_size, cfg.hop_size, cfg.block_frames, cfg.window)
-
-    @property
-    def use_sliding(self) -> bool:
-        """Sliding-DFT classic path: unpadded power-of-two FFTs with
-        hop <= fft/2."""
+    def use_classic_kernel(self) -> bool:
+        """Classic configs whose columns take ``ops/classic_columns.py``
+        (unpadded power-of-two FFTs from 64 to 32768 points); the others
+        run ``torch.fft`` on every device."""
         cfg = self.config
         return (
             not cfg.use_reassignment
             and cfg.zero_padding_factor == 1
-            and self._sliding.supported
+            and ccols.kernel_supports(cfg.fft_size)
         )
 
     @property
@@ -199,8 +193,6 @@ class SpectrogramAnalyzer:
 
     def init(self, n_streams: int, device=None) -> dict:
         carry = {"fb": self._frames.init(n_streams, device=device)}
-        if self.use_sliding:
-            carry["sdft"] = self._sliding.init(n_streams, device=device)
         if self.use_sliding_reassigned:
             carry["srs"] = self._sliding_reassigned.init(n_streams, device=device)
         return carry
@@ -213,14 +205,11 @@ class SpectrogramAnalyzer:
         if self.use_sliding_reassigned:
             new_carry["srs"], out = self._reassigned_sliding(carry["srs"], info)
         elif self.config.use_reassignment:
-            out = self._gated(info, self._reassigned)
-        elif self.use_sliding:
-            new_carry["sdft"], codes = self._sliding.step_fused(
-                carry["sdft"], info, self._norm(block.device), DB_FLOOR, emit_codes=True
-            )
-            out = ClassicColumns(codes=codes, valid=info["valid"])
+            out = self._gated(info, lambda: self._reassigned(self._frames.extract(info), info["valid"]))
+        elif self.use_classic_kernel:
+            out = self._gated(info, lambda: ClassicColumns(codes=self._classic_columns(info), valid=info["valid"]))
         else:
-            out = self._gated(info, self._classic)
+            out = self._gated(info, lambda: self._classic(self._frames.extract(info), info["valid"]))
         return new_carry, out
 
     def _gated(self, info, compute):
@@ -229,7 +218,7 @@ class SpectrogramAnalyzer:
         steps); on the others every column is empty.  ``ready`` is a host
         int, so this is a host branch."""
         if self.config.hop_size <= self.config.block_frames or info["ready"] > 0:
-            return compute(self._frames.extract(info), info["valid"])
+            return compute()
         valid = info["valid"]
         lanes, dev = valid.shape[0], valid.device
         shape = (lanes, self.cols_cap, self.bins)
@@ -247,13 +236,20 @@ class SpectrogramAnalyzer:
 
     # -- classic, per column --------------------------------------------------
 
-    def _classic(self, frames, valid) -> ClassicColumns:
+    @functools.lru_cache(maxsize=None)  # noqa: B019 (frozen dataclass)
+    def _window(self, device: torch.device) -> torch.Tensor:
         cfg = self.config
-        w = torch.from_numpy(window_coefficients(cfg.window, cfg.fft_size)).to(frames.device)
-        x = (frames - frames.mean(dim=-1, keepdim=True)) * w
-        spec = torch.fft.rfft(x, n=self.padded_fft)
-        power = (spec.real**2 + spec.imag**2) * self._norm(frames.device)
-        return ClassicColumns(codes=pack_classic_db(power_to_db(power, DB_FLOOR)), valid=valid)
+        return torch.from_numpy(window_coefficients(cfg.window, cfg.fft_size)).to(device)
+
+    def _classic_columns(self, info) -> torch.Tensor:
+        dev = info["buf"].device
+        return ccols.classic_columns(self._frames, info, self._window(dev), self._norm(dev), floor_db=DB_FLOOR)
+
+    def _classic(self, frames, valid) -> ClassicColumns:
+        dev = frames.device
+        codes = ccols.classic_columns_reference(frames, self._window(dev), self._norm(dev), floor_db=DB_FLOOR,
+                                                n=self.padded_fft)
+        return ClassicColumns(codes=codes, valid=valid)
 
     # -- reassigned ----------------------------------------------------------
 

@@ -17,7 +17,12 @@ Leaves are matched by path, never by position: ``torch.utils._pytree``
 flattens a dict in insertion order.  A checkpoint that the JAX package
 wrote loads here; its sliding-DFT states, padded to the JAX kernel's
 tiles, are cut as :func:`~openmeters_tpu_torch.convert.carry_from_jax`
-cuts them.
+cuts them, and the classic spectrogram's sliding state that it and earlier
+versions of this package wrote is dropped
+(:data:`~openmeters_tpu_torch.convert.RETIRED`).  This package computes
+each classic column from its frame and holds no such state, so it writes
+the one the JAX package would hold, the exact spectrum of the newest
+window from the ring, and its checkpoints keep loading there.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from openmeters_tpu_torch.convert import carry_from_jax
+from openmeters_tpu_torch.convert import RETIRED, carry_from_jax
+from openmeters_tpu_torch.ops.sliding_stft import SlidingSTFT
 
 # raised whenever a relayout of the carry changes leaf structure or shapes
 # without a visible config change; the resolved configs catch the rest
@@ -71,7 +77,7 @@ def save_state(path: str, engine, carry) -> None:
         from openmeters_tpu_torch.engine.sharding import gather_carry
 
         carry = gather_carry(engine, carry, device="cpu")
-    items = _flatten(carry)
+    items = _flatten(_with_sliding_state(engine, carry))
     arrays = {f"leaf_{i}": _to_numpy(v) for i, (_, v) in enumerate(items)}
     meta = {
         "fingerprint": _config_fingerprint(engine),
@@ -80,6 +86,27 @@ def save_state(path: str, engine, carry) -> None:
     }
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     np.savez_compressed(path, **arrays)
+
+
+def _with_sliding_state(engine, carry: dict) -> dict:
+    """``carry`` with the classic spectrogram's sliding state where the
+    JAX package slides it (unpadded power-of-two FFTs, ``hop <= fft/2``):
+    the state after the newest column is the rFFT of its window, whose
+    start the ring's origin and ``avail`` give; ``count`` 0, so the JAX
+    package re-anchors on its first hop."""
+    sg = engine.analyzers.get("spectrogram")
+    if sg is None or sg.config.use_reassignment or sg.config.zero_padding_factor != 1:
+        return carry
+    cfg = sg.config
+    if not SlidingSTFT(cfg.fft_size, cfg.hop_size, cfg.block_frames, cfg.window).supported:
+        return carry
+    fb, frames = carry["spectrogram"]["fb"], sg._frames  # noqa: SLF001
+    n = frames.read_len
+    start = (fb["origin"] - fb["avail"] - frames.hop) % frames.cap
+    anchored = fb["avail"] + frames.hop >= n  # a column has been emitted
+    spec = torch.fft.rfft(fb["buf"][:, start:start + n].double(), n=n) * anchored
+    sdft = {"re": spec.real.float(), "im": spec.imag.float(), "count": 0, "anchored": anchored}
+    return {**carry, "spectrogram": {**carry["spectrogram"], "sdft": sdft}}
 
 
 def load_state(path: str, engine, device="cuda") -> dict:
@@ -91,7 +118,8 @@ def load_state(path: str, engine, device="cuda") -> dict:
                 "checkpoint was written by a different engine config "
                 f"({meta['fingerprint']} != {_config_fingerprint(engine)})"
             )
-        saved = {p: z[f"leaf_{i}"] for i, p in enumerate(meta["paths"])}
+        saved = {p: z[f"leaf_{i}"] for i, p in enumerate(meta["paths"])
+                 if not any(f"/{p}".startswith(f"{r}/") for r in RETIRED)}
     n_streams = meta.get("n_streams")
     if n_streams is None:  # written before the count was stored
         n_streams = _infer_streams(engine, saved)

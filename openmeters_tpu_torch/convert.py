@@ -7,12 +7,20 @@ ring origins and hop counters, the sliding states' ``count`` and
 ``anchored``, the waveform's ``ring_head``.  Everything else is a tensor.
 Both trees nest dicts and tuples.  A sliding-DFT state that the JAX
 package stores padded to its kernel's 512-bin tiles is cut to ``bins``.
+The classic spectrogram's sliding state (``spectrogram/sdft``), which the
+JAX package and earlier versions of this one carry, is dropped: this
+package computes each classic column from its own frame and holds none.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# subtrees that a carry from the JAX package or an earlier version of this
+# one may hold and this package no longer does
+RETIRED = ("/spectrogram/sdft",)
 
 
 def _template(engine) -> dict:
@@ -26,6 +34,7 @@ def carry_from_jax(carry_np: dict, engine, device="cuda") -> dict:
 
     def convert(node, tmpl, path):
         if isinstance(tmpl, dict):
+            node = {k: v for k, v in node.items() if k in tmpl or f"{path}/{k}" not in RETIRED}
             if set(node) != set(tmpl):
                 raise KeyError(f"{path}: keys {sorted(node)} != {sorted(tmpl)}")
             return {k: convert(node[k], tmpl[k], f"{path}/{k}") for k in tmpl}

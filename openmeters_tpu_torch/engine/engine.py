@@ -323,8 +323,6 @@ class MeterEngine:
         if "spectrogram" in analyzers:
             sg = analyzers["spectrogram"]
             out["spectrogram"] = {"fb": frames()}
-            if sg.use_sliding:
-                out["spectrogram"]["sdft"] = sliding()
             if sg.use_sliding_reassigned:
                 out["spectrogram"]["srs"] = sg._sliding_reassigned.stream_dims()  # noqa: SLF001
         if "spectrum" in analyzers:

@@ -152,6 +152,13 @@ def load_library() -> ctypes.CDLL:
                 p,  # stream
             ]
             lib.reassigned_columns_launch.restype = ctypes.c_int
+            lib.classic_columns_launch.argtypes = [
+                p, p, p, p, p, p,  # ring window twiddles dif_twiddles norm out
+                i, i, i, i, i, i, i,  # S ring_len base hop ready cols n
+                f, f,  # floor_db store_scale
+                p,  # stream
+            ]
+            lib.classic_columns_launch.restype = ctypes.c_int
             lib.corr_search_launch.argtypes = [
                 p, p, p,  # src starts tmpl
                 p, p, p, p, p,  # klen wlen shift dif_twiddles dit_twiddles

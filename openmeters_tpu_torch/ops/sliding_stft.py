@@ -13,7 +13,8 @@ computes each column's delta spectrum as a pruned FFT of its samples
 (B1b), by :func:`fits_whole_row`.  An exact ``torch.fft.rfft`` re-anchor
 every ``refresh_steps`` hops bounds f32 drift.  The hop counter ``count``
 and the ``anchored`` flag are shared by all streams and kept as host
-values.  Shared by the classic spectrogram and the spectrum analyzer.
+values.  The spectrum analyzer's; the classic spectrogram computes each
+column from its own frame (``ops/classic_columns.py``).
 """
 
 from __future__ import annotations

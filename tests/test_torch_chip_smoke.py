@@ -180,7 +180,9 @@ def test_exact_errors_hold_the_cpu_path(reassigned):
     re-anchor (63) and on the re-anchor hop (64), and its columns within
     the bars of the exact ones on the re-anchor hop (on the hop before it,
     31 hops of f32 drift put the time at the peak at the 1e-4 bar).  A
-    window one hop off parts by more than 1e-2."""
+    window one hop off parts by more than 1e-2.  The classic columns hold
+    no state and come each from its frame: within the bar on both hops,
+    and a window one hop off parts by more than it."""
     import torch
 
     from openmeters_tpu_torch.engine import MeterEngine, StreamMeta
@@ -196,15 +198,15 @@ def test_exact_errors_hold_the_cpu_path(reassigned):
         if h >= 63:
             err = chip_smoke.exact_errors(engine, carry, snaps)
             for key, bar in chip_smoke.exact_bars().items():
-                if key in err and h == 64:
+                if key in err and (h == 64 or not reassigned):
                     assert err[key] <= bar, (h, key, err)
-            assert err["state_u"] <= 1e-5, (h, err)
+            assert not reassigned or err["state_u"] <= 1e-5, (h, err)
             info = chip_smoke.last_frames(engine.analyzers["spectrogram"], carry["spectrogram"], 4)
             shifted = {**carry, "spectrogram": {**carry["spectrogram"], "fb": {
                 **carry["spectrogram"]["fb"], "origin": (carry["spectrogram"]["fb"]["origin"] + 64)}}}
             assert info["ready"] == 4
             off = chip_smoke.exact_errors(engine, shifted, snaps)
-            assert off["state_u"] > 1e-2, (h, off)
+            assert off["state_u"] > 1e-2 if reassigned else off["codes"] > chip_smoke.exact_bars()["codes"], (h, off)
 
 
 def test_card_programme_blocks_follow_their_levels():

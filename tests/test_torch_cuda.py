@@ -109,6 +109,92 @@ def test_sliding_hop_rejects_bad_inputs(card):
                          n=256, coeffs=(0.3, 0.2, 0.2, 0.2, 0.1), floor_db=DB_FLOOR)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "fft,hop,window,s",
+    [(2048, 64, "hann", 300), (64, 16, "blackman_harris", 9), (256, 512, "hann", 5), (1024, 48, "blackman", 37),
+     (32768, 1024, "hann", 3)],
+)
+def test_classic_columns_kernel_matches_plain(card, fft, hop, window, s):
+    """The classic columns from the ring against the plain version on the
+    frames ``extract`` takes (f32 and float64), for every ``ready`` and a
+    base near the ring's end: noise 80 dB down with a loud stretch, so some
+    windows hold its edge.  Codes within 2 at bins within 60 dB of the
+    column's peak, against both."""
+    from openmeters_tpu_torch.ops import classic_columns as cc
+    from openmeters_tpu_torch.ops.framing import FrameBuffer
+
+    fb = FrameBuffer(fft, hop, 256)
+    gen = torch.Generator(device=card).manual_seed(fft + hop)
+    buf = torch.randn((s, fb.ring_len), generator=gen, device=card) * 1e-4
+    buf[:, fb.cap - fft // 3:fb.cap] = torch.randn((s, fft // 3), generator=gen, device=card)
+    kind = WindowKind(window)
+    w = torch.from_numpy(window_coefficients(kind, fft)).to(card)
+    norm = torch.from_numpy(fft_bin_normalization(window_coefficients(kind, fft), fft)).to(card)
+    for base in (0, fb.cap - fft // 2, fb.cap - 1):
+        for ready in sorted({0, 1, fb.cols_cap}):
+            info = {"buf": buf, "base": base, "ready": ready}
+            before = cc.classic_columns.launches
+            got = cc.classic_columns(fb, info, w, norm, floor_db=DB_FLOOR)
+            assert cc.classic_columns.launches == before + 1
+            assert got.shape == (s, fb.cols_cap, fft // 2 + 1) and got.dtype == torch.uint16
+            frames = fb.extract(info)
+            for ref in (cc.classic_columns_reference(frames, w, norm, floor_db=DB_FLOOR),
+                        cc.classic_columns_reference(frames.double(), w.double(), norm.double(), floor_db=DB_FLOOR)):
+                ref = ref.to(torch.int64)
+                held = ref >= ref.amax(-1, keepdim=True) - RESOLVED_CODES
+                d = (got.to(torch.int64) - ref).abs()
+                assert int((d * held).max()) <= 2, (base, ready, int((d * held).max()))
+
+
+@pytest.mark.cuda
+def test_classic_columns_rejects_bad_inputs(card):
+    from openmeters_tpu_torch.ops import classic_columns as cc
+    from openmeters_tpu_torch.ops.framing import FrameBuffer
+
+    fb = FrameBuffer(256, 64, 256)
+    buf = torch.zeros((4, fb.ring_len), device=card)
+    w, norm = torch.ones((256,), device=card), torch.ones((129,), device=card)
+    info = {"buf": buf, "base": 0, "ready": 4}
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        cc.classic_columns(fb, info, w.cpu(), norm, floor_db=DB_FLOOR)
+    with pytest.raises(ValueError):  # a ring of another length
+        cc.classic_columns(fb, {**info, "buf": buf[:, 1:].contiguous()}, w, norm, floor_db=DB_FLOOR)
+    with pytest.raises(ValueError):  # not a power of two
+        cc.classic_columns(FrameBuffer(250, 50, 256), info, w, norm, floor_db=DB_FLOOR)
+
+
+@pytest.mark.cuda
+def test_classic_spectrogram_card_matches_cpu_across_a_drop(card):
+    """The flagship's classic 2048/64 spectrogram on the card against the
+    CPU (S=6, 120 hops of programme-like audio, four streams dropping 60 to
+    80 dB at different hops, a reset at hop 90): valid flags equal, codes
+    within 2 at bins within 60 dB of the peak."""
+    from openmeters_tpu_torch.analyzers.spectrogram import SpectrogramAnalyzer, SpectrogramConfig
+
+    an = SpectrogramAnalyzer(SpectrogramConfig(fft_size=2048, hop_size=64, use_reassignment=False))
+    s, hops = 6, 120
+    rng = np.random.default_rng(19)
+    t = np.arange(hops * 256) / 48_000.0
+    x = np.sin(2 * np.pi * rng.uniform(60, 6000, (s, 1)) * t) + 0.3 * rng.standard_normal((s, hops * 256))
+    for i, (h, db) in enumerate(((40, -60.0), (55, -80.0), (71, -70.0), (100, -80.0))):
+        x[i, h * 256 + 17 * i:] *= 10 ** (db / 20)
+    x = torch.from_numpy(x.astype(np.float32))
+    carries = {d: an.init(s, device=d) for d in (card, "cpu")}
+    for h in range(hops):
+        reset = torch.tensor([False, False, False, False, True, False]) if h == 90 else None
+        outs = {}
+        for d in carries:
+            carries[d], outs[d] = an.step(carries[d], x[:, h * 256:(h + 1) * 256].to(d),
+                                          None if reset is None else reset.to(d))
+        valid = outs["cpu"].valid
+        assert torch.equal(outs[card].valid.cpu(), valid), h
+        ref = outs["cpu"].codes.to(torch.int64)
+        held = valid[..., None] & (ref >= ref.amax(-1, keepdim=True) - RESOLVED_CODES)
+        d = (outs[card].codes.cpu().to(torch.int64) - ref).abs()
+        assert int((d * held).max()) <= 2, (h, int((d * held).max()))
+
+
 def _assert_reassigned_close(ours, ref):
     """Kernel against plain, one hop apart from nothing: the bars of
     ``utils/parity.py`` without drift (0.01 hop within 60 dB)."""

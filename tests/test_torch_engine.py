@@ -145,7 +145,9 @@ def _continue_from_jax_carry(jcfg, tcfg, s, before, after, seed, resets=None):
     tsess.carry = convert.carry_from_jax(carry_np, tsess.engine, device="cpu")
 
     back = convert.carry_to_numpy(tsess.carry)
-    flat_j = jax.tree_util.tree_leaves_with_path(carry_np)
+    # the port holds no classic-spectrogram sliding state (convert.RETIRED)
+    flat_j = [(path, leaf) for path, leaf in jax.tree_util.tree_leaves_with_path(carry_np)
+              if not jax.tree_util.keystr(path).startswith("['spectrogram']['sdft']")]
     flat_t = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_j) == len(flat_t)
     for path, leaf in flat_j:

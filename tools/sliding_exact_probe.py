@@ -6,9 +6,11 @@ levels stepping every 1.6 s, some sections at -85 to -78 dBFS).
 
 Two readings, both by ``chip_smoke.py``'s helpers:
 
-- ``drift``: the flagship (classic 2048/64) and the reassigned default
-  (2048/64) stepped free-running; on each hop before a re-anchor the last
-  column against its exact float64 recompute from the rings
+- ``drift``: the flagship (classic 2048/64, each column from its own frame,
+  so no state carries rounding from hop to hop) and the reassigned default
+  (2048/64, sliding) stepped free-running; on each hop before a re-anchor
+  of the sliding path the last column against its exact float64 recompute
+  from the rings
   (``exact_errors``), per stream, with the stream's kind and the hops since
   its section's level changed.  Prints each stream and hop that breaks a
   bar of ``exact_bars()`` (codes; frequency, power, time within the

@@ -17,7 +17,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    flagship's spectrogram, against its plain version in float64 from the
    same ring at the flagship shape, 64/16 Blackman-Harris and 32768/1024,
    plus the kernel's, the plain version's and the f32 ``torch.fft``
-   chain's times at the flagship shape;
+   chain's times at the flagship shape; (3c) the ``ring_gather`` kernel on
+   one hop of a registered transport at S=8192, 256 x 2 (rows in one ring
+   segment, across the ring's end, staged and zero) bit for bit against
+   its plain version and the copying assembler's batch, plus the kernel's,
+   the plain version's and the H2D copy of the batch's times, and the
+   seconds to register the rings; with the served 64,000-frame rings, then
+   4,800-frame ones;
 4. the flagship engine through the public API on the card against the
    same on the CPU (S=32, 200 hops, two streams reset at hop 90);
 5. the flagship engine at S=8192 stereo streams: 40 warm-up hops, then 200
@@ -102,7 +108,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     flagship (20b); 20 warm-up advances, 200 timed to the last drained
     fetch: ``report()``, host ms per advance by stage, the device's busy
     share from a 10-advance profile, peak device memory, the transport's
-    host bytes, and the launches of the path's kernels (each must launch).
+    host bytes, and the launches of the path's kernels (each must launch;
+    ``ring_gather`` once a hop and shard).
 21. the CLI on the card, in this process through
     ``openmeters_tpu_torch.__main__.main``: (a) ``serve --socket PATH
     --rates 44100,48000 --streams 4096`` with the flagship in a settings
@@ -471,6 +478,112 @@ def phase3b_classic_columns(dev) -> dict:
             result.update(bound(moved, fft_flops(n // 2, s * cols)))
             log(f"phase 3b timing at S={s}: kernel {k1:.4f}/{k2:.4f} ms, plain (float64) {p1:.4f}/{p2:.4f} ms, "
                 f"the f32 torch.fft chain {result['library_ms']:.4f} ms, {fmt_bound(result)} [{card_line()}]")
+    return result
+
+
+def timed_on(stream, fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` issued on ``stream``, by CUDA events."""
+    with torch.cuda.stream(stream):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(reps):
+            fn()
+        stop.record(stream)
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase3c_ring_gather(dev) -> dict:
+    """The ``ring_gather`` kernel on one hop of a registered transport at
+    the served shape (S=8192, 256 frames, 2 channels): two transports fed
+    the same pushes, one drained by the copying pass, the other by the
+    descriptor pass, with rows of every kind (one ring segment, across the
+    ring's end, staged, zero); the kernel's block bit for bit the plain
+    gather's and the copying pass's batch.  Then, on a copy stream, the
+    kernel, the plain version (its index gather on the host into the
+    card's block) and the H2D copy of the copying pass's pinned batch
+    (``library_ms``: the copy the gather replaced) timed; the bound is the
+    hop's samples and descriptors over the copy engine's rate measured
+    here.  Rings of the served 64,000 frames (a 4.19 GB arena: the result),
+    then of 4,800 (0.31 GB), to tell the arena's size from the bytes."""
+    result = {}
+    for cap in (64_000, 4_800):
+        got = _ring_gather_hop(dev, cap)
+        result = result or got
+    return result
+
+
+def _ring_gather_hop(dev, cap: int) -> dict:
+    from openmeters_tpu_torch.ingest import Transport
+    from openmeters_tpu_torch.ingest.transport import ROW_KINDS
+    from openmeters_tpu_torch.ops.ring_gather import mapped_addresses, ring_gather, ring_gather_reference
+
+    s, b, c, rate = FLAGSHIP_S, 256, 2, 48_000.0
+    ns = lambda frames: int(frames / rate * 1e9)  # noqa: E731
+    tps = [Transport(s, c, b, rate, ring_seconds=cap / rate) for _ in range(2)]
+    rng = np.random.default_rng(SEED + 30)
+    audio = rng.standard_normal((s, 2 * b, c)).astype(np.float32)
+    kind = np.arange(s) % 16  # 0: idle (zero row); 1: a gap inside the hop (staged); 2-4: across the end
+    pre = np.where((kind >= 2) & (kind <= 4), cap - 2 - rng.integers(0, b - 3, s), 0)
+    filler = np.zeros((cap, c), np.float32)
+    for tp in tps:
+        for st in np.flatnonzero(pre):
+            tp.push_pcm(int(st), filler[: pre[st]], 0)
+            tp.push_fault(int(st))
+        tp.assemble()  # the faults discard the filler: these rings' next rows start near their ends
+        for st in range(s):
+            if kind[st] == 1:
+                tp.push_pcm(st, audio[st, :100], 0)
+                tp.push_pcm(st, audio[st, 100:256], ns(150))
+            elif kind[st] != 0:
+                n = b + 64 * (st % 3)
+                tp.push_pcm(st, audio[st, :n], ns(pre[st]))
+    copying, described = tps
+    batch, rst_c, und_c, live_c = copying.assemble()
+    bufs = described.make_desc_buffers(pin_memory=True)
+    before = described.ingest_rows.copy()
+    rst_d, und_d, live_d = described.assemble_desc(bufs, 0)
+    rows = dict(zip(ROW_KINDS, (described.ingest_rows - before).tolist()))
+    check(np.array_equal(rst_c, rst_d) and np.array_equal(und_c, und_d) and live_c == live_d,
+          "phase 3c: the descriptor pass's masks differ from the copying pass's")
+    check(min(rows.values()) > 0, f"phase 3c: a row kind is missing: {rows}")
+    t0 = time.perf_counter()
+    described.pin_arena([dev])
+    register_s = time.perf_counter() - t0
+    try:
+        arena = described.arena_tensor()
+        staging, desc = torch.from_numpy(bufs[0]), torch.from_numpy(bufs[3])
+        mapped = mapped_addresses(arena, staging, desc)
+        want = torch.from_numpy(np.array(batch))
+        plain = ring_gather_reference(arena, staging, desc, torch.empty((s, b, c)))
+        out = torch.full((s, b, c), float("nan"), device=dev)
+        copy = torch.cuda.Stream(dev)
+        with torch.cuda.stream(copy):
+            ring_gather(arena, staging, desc, out, mapped=mapped)
+        copy.synchronize()
+        got = out.cpu()
+        check(torch.equal(plain.view(torch.int32), want.view(torch.int32)), "phase 3c: plain gather != copying pass")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "phase 3c: kernel != copying pass")
+        err = float((got - want).abs().max())
+        pinned = want.pin_memory()
+        kern = lambda: ring_gather(arena, staging, desc, out, mapped=mapped)  # noqa: E731
+        lib = lambda: out.copy_(pinned, non_blocking=True)  # noqa: E731
+        ref = lambda: ring_gather_reference(arena, staging, desc, out)  # noqa: E731
+        p1, k1, l1, l2, k2, p2 = (timed_on(copy, f, r) for f, r in ((ref, 3), (kern, 50), (lib, 50),
+                                                                     (lib, 50), (kern, 50), (ref, 3)))
+    finally:
+        described.unpin_arena()
+    samples = s * b * c * 4
+    link = samples / ((l1 + l2) / 2) / 1e6  # GB/s
+    result = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+              "bound_ms": (samples + s * 32) / link / 1e6, "bound_by": "host link (the copy engine's rate)",
+              "rows": rows, "register_s": register_s, "ring_frames": cap}
+    log(f"phase 3c ring_gather S={s} {b}x{c}, {cap}-frame rings ({arena.numel() * 4 / 1e9:.3f} GB arena), rows "
+        f"{json.dumps(rows)}: bit-equal to the plain gather and the copying pass; kernel {k1:.4f}/{k2:.4f} ms "
+        f"({samples / k1 / 1e6:.1f}/{samples / k2 / 1e6:.1f} GB/s), plain {p1:.4f}/{p2:.4f} ms, H2D copy of the "
+        f"pinned batch {l1:.4f}/{l2:.4f} ms ({link:.1f} GB/s); bound {result['bound_ms']:.4f} ms "
+        f"({samples + s * 32} B at {link:.1f} GB/s); registering the arena {register_s:.3f} s [{card_line()}]")
     return result
 
 
@@ -1986,8 +2099,10 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
     """``MeterServer`` at S=8192 stereo streams on the card, ``fetch="meters"``
     every sixth hop, with the C++ ``Feeder`` (4 threads) pushing flat out
     under backpressure: ``warmup`` advances, then ``advances`` timed (the
-    clock stopped after ``close()`` has drained every fetch), counting the
-    launches of ``expect``'s kernels, then a ``profile``-advance profile.
+    clock stopped once every fetch is drained and the card is done; the
+    server is closed after the profile), counting the
+    launches of ``expect``'s kernels and of ``ring_gather`` (one a hop and
+    shard), then a ``profile``-advance profile.
     With ``mesh`` the server cuts its streams over it, and
     ``check_join(server)`` runs after the profile."""
     from openmeters_tpu_torch.ingest import Feeder
@@ -1995,6 +2110,7 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
     from openmeters_tpu_torch.ops.corr import corr_dots_sums_ring
     from openmeters_tpu_torch.ops.iir import three_band_scan
     from openmeters_tpu_torch.ops.reassigned_hop import reassigned_sliding_hop
+    from openmeters_tpu_torch.ops.ring_gather import ring_gather
     from openmeters_tpu_torch.ops.rows import window_rows
     from openmeters_tpu_torch.ops.sliding_hop import sliding_hop
     from openmeters_tpu_torch.serve import MeterServer, ServeConfig
@@ -2018,13 +2134,15 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
         server.stats, server.latencies_ms = EngineStats(), []
         server.host_seconds = dict.fromkeys(server.host_seconds, 0.0)
         counters = {c.__name__: c for c in (classic_columns, sliding_hop, reassigned_sliding_hop,
-                                            corr_dots_sums_ring, window_rows, three_band_scan)}
+                                            corr_dots_sums_ring, window_rows, three_band_scan, ring_gather)}
         for c in counters.values():
             c.launches = 0
         t1 = time.perf_counter()
         for _ in range(advances):
             server.advance()
-        server.close()
+        while server._inflight:  # noqa: SLF001
+            server._drain_one()  # noqa: SLF001
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {name: c.launches for name, c in counters.items()}
         server.stats.wall_seconds = wall
@@ -2056,6 +2174,9 @@ def phase20_serving_s8192(dev, label: str, engine_cfg, expect: tuple, mesh=None,
     check(report["hops"] >= advances, f"{report['hops']} hops in {advances} advances")
     for name in expect:
         check(launches[name] > 0, f"{label}: {name} never launched")
+    gathers = report["hops"] * len(server._shards)  # noqa: SLF001
+    check(launches["ring_gather"] == gathers, f"{label}: ring_gather launched {launches['ring_gather']} times, "
+          f"want {gathers} (a hop and shard)")
     return {"report": report, "host_ms": host, "busy_ms": busy_ms, "wall_ms": ms_per_advance,
             "launches": launches, "peak_gib": peak / 2**30, "advances": advances}
 
@@ -2177,11 +2298,11 @@ class _Phase21Server:
     def _observe(self, rate, s) -> None:
         flags, drains = self.flags.setdefault(rate, []), self.drains.setdefault(rate, [])
         quiet = self.quiet.setdefault(rate, dict.fromkeys(self.counters, 0))
-        assemble, advance = s.transport.assemble, s.advance
+        assemble, advance = s.transport.assemble_desc, s.advance
 
         def observed_assemble(*args, **kw):
             out = assemble(*args, **kw)
-            flags.append(np.packbits((out[1] != 0) | (out[2] != 0)))
+            flags.append(np.packbits((out[0] != 0) | (out[1] != 0)))
             return out
 
         def recorder(server):
@@ -2201,7 +2322,7 @@ class _Phase21Server:
                 for n, c in self.counters.items():
                     quiet[n] += c.launches - before[n]
 
-        s.transport.assemble = observed_assemble
+        s.transport.assemble_desc = observed_assemble
         s.on_drain = recorder  # the CLI's settings watcher runs after it
         s.advance = observed_advance
 
@@ -3759,6 +3880,7 @@ def main() -> int:
 
     kernel = phase3_kernel(dev)
     columns_kernel = phase3b_classic_columns(dev)
+    gather_kernel = phase3c_ring_gather(dev)
     phase4_slice(dev)
     launches = phase5_flagship(dev)
     hop_kernel = phase6_reassigned_hop(dev)
@@ -3821,6 +3943,9 @@ def main() -> int:
             # the classic spectrogram's columns, in place of B1a on that path
             entry("classic_columns", "openmeters_tpu_torch/csrc/classic_columns.cu",
                   "openmeters_tpu/ops/pallas_sliding.py:381", launches["classic_columns"], columns_kernel),
+            # no pallas_call: the JAX package copies each hop's rows into a host batch and puts it on the device
+            entry("ring_gather", "openmeters_tpu_torch/csrc/ring_gather.cu", "openmeters_tpu/serve.py:698",
+                  served20b["launches"]["ring_gather"], gather_kernel),
             entry("reassigned_sliding_hop", "openmeters_tpu_torch/csrc/reassigned_hop.cu",
                   "openmeters_tpu/ops/pallas_sliding_reassigned.py:229", hop_launches, hop_kernel),
             entry("reassigned_columns", "openmeters_tpu_torch/csrc/reassigned_columns.cu",

@@ -1,6 +1,15 @@
 """ctypes binding for the native ingest transport (port of
-``ingest/transport.py``; ``transport.cpp`` and ``feeder.cpp`` are the JAX
-package's sources, copied unchanged).
+``ingest/transport.py``; ``feeder.cpp`` is the JAX package's source, copied
+unchanged).
+
+``transport.cpp`` started as the JAX package's and keeps its semantics and
+its copying assembler (``om_assemble_buf``, :meth:`Transport.assemble`),
+whose batches match the JAX package's for the same pushes.  It differs in
+where the samples live and when ring space is freed: every stream's ring
+lies in one page-aligned arena, and the descriptor pass
+(:meth:`Transport.assemble_desc`, the serving loop's) leaves the samples
+there, so that a card gathers them (``ops/ring_gather.py``); their space
+goes back to the producers at a later pass into the same buffer set.
 
 The shared library builds with ``g++`` at first use into
 ``build/openmeters_tpu_torch/`` beside the package, named by a hash of the
@@ -62,6 +71,10 @@ def _load():
         ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
     ]
     lib.om_transport_destroy.argtypes = [ctypes.c_void_p]
+    lib.om_arena.restype = ctypes.c_void_p
+    lib.om_arena.argtypes = [ctypes.c_void_p]
+    lib.om_arena_bytes.restype = ctypes.c_uint64
+    lib.om_arena_bytes.argtypes = [ctypes.c_void_p]
     lib.om_push_pcm.restype = ctypes.c_int32
     lib.om_push_pcm.argtypes = [
         ctypes.c_void_p, ctypes.c_uint32,
@@ -108,6 +121,19 @@ def _load():
         ctypes.c_uint32,
         ctypes.c_uint32,
     ]
+    lib.om_assemble_desc.restype = ctypes.c_int32
+    lib.om_assemble_desc.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_uint32,
+        ctypes.c_uint32,
+        ctypes.c_uint32,
+        ctypes.c_uint32,
+    ]
     lib.om_set_active.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32]
     lib.om_is_active.restype = ctypes.c_uint32
     lib.om_is_active.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
@@ -139,11 +165,17 @@ def _get_lib():
     return _lib
 
 
+# the descriptor pass's row kinds, in the order om_assemble_desc counts them
+ROW_KINDS = ("one_segment", "two_segments", "staged", "zero")
+
+
 class Transport:
     """Multi-stream host transport feeding fixed-shape engine batches.
 
     Producer threads call :meth:`push_pcm` / :meth:`push_silence` /
-    :meth:`push_fault`; the engine loop calls :meth:`assemble` once per hop.
+    :meth:`push_fault`; the engine loop calls :meth:`assemble` or
+    :meth:`assemble_desc` once per hop.  ``ingest_rows`` counts the
+    descriptor pass's rows by kind (:data:`ROW_KINDS`) since the start.
     """
 
     def __init__(
@@ -165,6 +197,11 @@ class Transport:
             n_streams, channels, block_frames, sample_rate,
             ring_seconds, max_backlog_seconds, max_silence_seconds,
         )
+        if not self._h:
+            raise MemoryError(f"the ring arena of {n_streams} streams could not be mapped")
+        self._pinned = None  # the devices the arena is registered for (pin_arena)
+        self._arena = None
+        self.ingest_rows = np.zeros((len(ROW_KINDS),), np.uint64)
         self._batch = np.zeros((n_streams, block_frames, channels), np.float32)
         self._reset = np.zeros((n_streams,), np.uint8)
         self._underrun = np.zeros((n_streams,), np.uint8)
@@ -175,6 +212,7 @@ class Transport:
 
     def __del__(self):
         if getattr(self, "_h", None):
+            self.unpin_arena()
             self._lib.om_transport_destroy(self._h)
             self._h = None
 
@@ -276,6 +314,95 @@ class Transport:
                 ]
                 n_live = sum(f.result() for f in futs)
             return batch, reset.astype(bool), underrun.astype(bool), n_live
+
+    def assemble_desc(self, out, slot: int, pool=None, shards: int = 1, release: bool = True):
+        """Drain one hop into descriptors: returns (reset [S] bool,
+        underrun [S] bool, n_live).
+
+        ``out=(staging, reset, underrun, desc)`` (:meth:`make_desc_buffers`)
+        receives a descriptor a row (``ops/ring_gather.py`` has the format
+        and gathers them) and the rows the pass copies.  The ring space the
+        descriptors name stays held for buffer set ``slot`` (0-3) until a
+        later pass into the set with ``release``, which gives back what the
+        passes into it since the last release read, each stream's before it
+        reads the stream.  So a caller passes ``release`` on its first pass
+        into a set once the gather out of the set is done, and not on
+        further passes into it before that set's rows are gathered.  A
+        caller that mixes this with :meth:`assemble` does so only while no
+        gather is pending: a copying pass frees what it reads at once.
+        ``pool`` and ``shards`` as for :meth:`assemble`.
+        """
+        with span("ingest.assemble"):
+            staging, reset, underrun, desc = out
+            f32, u8 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+            args = (
+                self._h, staging.ctypes.data_as(f32), reset.ctypes.data_as(u8), underrun.ctypes.data_as(u8),
+                desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            )
+            step = self.n_streams if pool is None or shards <= 1 else -(-self.n_streams // shards)
+            ranges = [(lo, min(lo + step, self.n_streams)) for lo in range(0, self.n_streams, step)]
+            counts = np.zeros((len(ranges), len(ROW_KINDS)), np.uint64)
+
+            def run(k):
+                lo, hi = ranges[k]
+                cnt = counts[k].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+                return self._lib.om_assemble_desc(*args, cnt, lo, hi, slot, int(release))
+
+            if len(ranges) == 1:
+                lives = [run(0)]
+            else:
+                lives = [f.result() for f in [pool.submit(run, k) for k in range(len(ranges))]]
+            if min(lives) < 0:
+                raise ValueError(f"buffer set {slot} outside 0-3")
+            self.ingest_rows += counts.sum(axis=0, dtype=np.uint64)
+            return reset.astype(bool), underrun.astype(bool), sum(lives)
+
+    def make_desc_buffers(self, pin_memory: bool = False):
+        """One zeroed ``(staging, reset, underrun, desc)`` buffer set for
+        :meth:`assemble_desc`; ``pin_memory`` as for :meth:`make_buffers`
+        (a card then reads the staging rows and descriptors in place)."""
+        staging, reset, underrun = self.make_buffers(pin_memory)
+        if not pin_memory:
+            return staging, reset, underrun, np.zeros((self.n_streams, 4), np.int64)
+        import torch
+
+        return staging, reset, underrun, torch.zeros((self.n_streams, 4), dtype=torch.int64, pin_memory=True).numpy()
+
+    def arena_tensor(self):
+        """A float32 ``torch`` vector over the ring arena (no copy), the
+        source the descriptors index; valid while the transport lives."""
+        if self._arena is None:
+            import torch
+
+            n = self._lib.om_arena_bytes(self._h) // 4
+            buf = (ctypes.c_float * n).from_address(self._lib.om_arena(self._h))
+            self._arena = torch.from_numpy(np.ctypeslib.as_array(buf))
+        return self._arena
+
+    def pin_arena(self, devices) -> None:
+        """Register the ring arena as mapped, portable pinned memory, so
+        the cards of ``devices`` read the rings in place; undone by
+        :meth:`unpin_arena`, or before the transport frees the arena."""
+        if self._pinned is not None:
+            return
+        from openmeters_tpu_torch.ops.ring_gather import host_register
+
+        host_register(self._lib.om_arena(self._h), self._lib.om_arena_bytes(self._h))
+        self._pinned = tuple(devices)
+
+    def unpin_arena(self) -> None:
+        """Wait for the cards of :meth:`pin_arena`, then unregister the
+        arena."""
+        if self._pinned is None:
+            return
+        import torch
+
+        from openmeters_tpu_torch.ops.ring_gather import host_unregister
+
+        for dev in set(self._pinned):
+            torch.cuda.synchronize(dev)
+        host_unregister(self._lib.om_arena(self._h))
+        self._pinned = None
 
     def make_buffers(self, pin_memory: bool = False):
         """One zeroed ``(batch, reset, underrun)`` buffer set for

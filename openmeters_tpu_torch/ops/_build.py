@@ -172,6 +172,14 @@ def load_library() -> ctypes.CDLL:
             lib.window_rows_launch.restype = ctypes.c_int
             lib.three_band_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]  # x state coeffs bands state_out T L cascade_n high_from_al stream
             lib.three_band_launch.restype = ctypes.c_int
+            lib.ring_gather_launch.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]  # arena staging desc out row0 rows row_len stream
+            lib.ring_gather_launch.restype = ctypes.c_int
+            lib.ring_host_register.argtypes = [p, ctypes.c_ulonglong]
+            lib.ring_host_register.restype = ctypes.c_int
+            lib.ring_host_unregister.argtypes = [p]
+            lib.ring_host_unregister.restype = ctypes.c_int
+            lib.ring_host_device_pointer.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
+            lib.ring_host_device_pointer.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -2,15 +2,21 @@
 
 One advance of :class:`MeterServer`:
 
-- the C++ transport assembles a fixed ``[S, B, C]`` batch into one of two
-  sets of pinned host buffers (idle watchdog, activity epochs and
-  generation resets live in the transport);
-- a copy stream sends the set to its own device buffer with a
-  ``non_blocking`` copy and records an event, and the compute stream waits
-  on that event, so the copy of hop N overlaps the assembly of hop N+1.
-  Before the assembler writes into a set again it waits on the event of
-  that set's last copy, and before a copy overwrites a device buffer the
-  copy stream waits on the event of the step that read it;
+- the C++ transport's descriptor pass writes, into one of two sets of
+  pinned host buffers, a descriptor for each row of a fixed ``[S, B, C]``
+  batch: where in its ring the row's samples lie (idle watchdog, activity
+  epochs and generation resets live in the transport; the rare row that no
+  descriptor can name is copied into the set's staging batch);
+- on a copy stream, a gather kernel (``ops/ring_gather.py``) reads the
+  rows straight from the rings, mapped pinned host memory, into the set's
+  device buffer and records an event, and the compute stream waits on that
+  event, so the gather of hop N overlaps the assembly of hop N+1.  Before
+  the assembler writes into a set again it waits on the event of that
+  set's last gather (its first pass into the set then gives the ring space
+  that gather read back to the producers), and before a gather overwrites
+  a device buffer the copy stream waits on the event of the step that read
+  it (on the CPU the gather is an index gather of the arena, done at
+  once);
 - the engine steps the live carry, which it updates in place;
 - every ``fetch_every``-th hop the meter leaves go into one ``torch.cat``,
   copied to a pinned host vector with an event; the drain waits on that
@@ -46,8 +52,8 @@ Runs on the card unless given ``device="cpu"``; where no card is present
 ``"cuda"`` raises.  Over a mesh (``mesh=``, a
 :class:`~openmeters_tpu_torch.engine.sharding.StreamMesh`) the streams
 are cut into one run a shard: each shard has its own device buffers, copy
-stream and events, carry and meter vector; an advance copies each shard's
-rows of the pinned batch to its device and issues every shard's step from
+stream and events, carry and meter vector; an advance gathers each shard's
+rows onto its device and issues every shard's step from
 this thread, and the drain joins the shards' meter vectors leaf by leaf
 along each leaf's stream dim, so ``last_meters()`` reads as an unsharded
 server's.
@@ -76,6 +82,8 @@ from openmeters_tpu_torch.engine.sharding import (
     snapshot_stream_dims,
 )
 from openmeters_tpu_torch.ingest import Transport
+from openmeters_tpu_torch.ingest.transport import ROW_KINDS
+from openmeters_tpu_torch.ops.ring_gather import mapped_addresses, ring_gather
 from openmeters_tpu_torch.tracing import EngineStats, span
 from openmeters_tpu_torch.views import SpectrogramHistory, WaveformHistory, waveform_columns_from_meters
 
@@ -143,8 +151,9 @@ class _Shard:
     blocks: list  # per buffer set: [K, n, B, C]
     resets: list  # per buffer set: [K, n] bool
     copy_stream: torch.cuda.Stream | None
+    mapped: list | None = None  # per buffer set and hop: the card's addresses of the gather's sources
     carry: dict | None = None
-    copied: list = dataclasses.field(default_factory=lambda: [None, None])  # the set's last copy is done
+    copied: list = dataclasses.field(default_factory=lambda: [None, None])  # the set's last gather is done
     consumed: list = dataclasses.field(default_factory=lambda: [None, None])  # the steps reading it are done
     spec_blocks: torch.Tensor | None = None
     spec_resets: torch.Tensor | None = None
@@ -297,9 +306,14 @@ class MeterServer:
         self._meta_weights = host_meta.weights.numpy().copy()
         self._meta_dirty = False
         cuda = device.type == "cuda"
-        # two sets of K host buffer triples; each shard has its rows of both
-        # sets on its device
-        self._buffers = [[self.transport.make_buffers(pin_memory=cuda) for _ in range(k)] for _ in range(2)]
+        # two sets of K host buffers (staging batch, masks, descriptors);
+        # each shard has its rows of both sets on its device
+        self._buffers = [[self.transport.make_desc_buffers(pin_memory=cuda) for _ in range(k)] for _ in range(2)]
+        self._gather_src = [[(torch.from_numpy(st), torch.from_numpy(d)) for st, _, _, d in bufs]
+                            for bufs in self._buffers]
+        self._arena = self.transport.arena_tensor()
+        if cuda:
+            self.transport.pin_arena(devices)
         self._host_resets = [torch.zeros((k, s), dtype=torch.bool, pin_memory=cuda) for _ in range(2)]
         per = s // len(devices)
         self._shards = []
@@ -311,13 +325,17 @@ class MeterServer:
                 [torch.zeros((k, per), dtype=torch.bool, device=dev) for _ in range(2)],
                 torch.cuda.Stream(dev) if cuda else None,
             ))
+            if cuda:
+                with on_device(dev):
+                    self._shards[-1].mapped = [[mapped_addresses(self._arena, st, d) for st, d in src]
+                                               for src in self._gather_src]
         self._pool = ThreadPoolExecutor(config.assembler_shards) if config.assembler_shards > 1 else None
         self.paused = False
         self._stop = False
         self._resume_mask = None  # set by restore(): each stream's next reset is the resumption itself
         self.stats = EngineStats()
         self.latencies_ms: collections.deque[float] = collections.deque(maxlen=LATENCY_WINDOW)
-        # host seconds spent assembling, issuing the copies, issuing the
+        # host seconds spent assembling, issuing the gathers, issuing the
         # steps, and draining fetches
         self.host_seconds = {"assemble": 0.0, "h2d": 0.0, "step": 0.0, "drain": 0.0}
         self.last_snapshot = None
@@ -631,12 +649,12 @@ class MeterServer:
             with span("serve.copy_wait"):
                 for sh in self._shards:
                     if sh.copied[i] is not None:
-                        sh.copied[i].synchronize()  # this set's last copy has left the buffers
+                        sh.copied[i].synchronize()  # this set's last gather has left the buffers and rings
             resets = []
             for j, out in enumerate(self._buffers[i]):
-                _, rst, und, _ = self.transport.assemble(
-                    pool=self._pool, shards=cfg.assembler_shards, out=out, buf_id=i if k == 1 else None,
-                )
+                # the first pass gives back the ring space this set's last gather read
+                rst, und, _ = self.transport.assemble_desc(out, i, pool=self._pool, shards=cfg.assembler_shards,
+                                                           release=j == 0)
                 if self._resume_mask is not None:
                     consumed = rst & self._resume_mask
                     rst = rst & ~self._resume_mask
@@ -660,8 +678,9 @@ class MeterServer:
                 with sh.on(), torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
                     if copy is not None and sh.consumed[i] is not None:
                         copy.wait_event(sh.consumed[i])  # the steps that read these blocks are done
-                    for j, (batch, _, _) in enumerate(self._buffers[i]):
-                        sh.blocks[i][j].copy_(torch.from_numpy(batch[sh.lo : sh.hi]), non_blocking=True)
+                    for j, (staging, desc) in enumerate(self._gather_src[i]):
+                        ring_gather(self._arena, staging, desc, sh.blocks[i][j], row0=sh.lo,
+                                    mapped=sh.mapped and sh.mapped[i][j])
                         if has[j]:
                             sh.resets[i][j].copy_(self._host_resets[i][j][sh.lo : sh.hi], non_blocking=True)
                     if copy is not None:
@@ -869,14 +888,20 @@ class MeterServer:
             # the loudness step's CUDA graphs (the current engine's): replays,
             # eager steps, graphs recorded, rebinds
             "loudness_graphs": dict(self.engine.loudness_graphs.counts),
+            # the assembled rows by how they reach the device: gathered from
+            # one ring segment or two, staged on the host, or all zeros
+            "ingest_rows": dict(zip(ROW_KINDS, map(int, self.transport.ingest_rows))),
         }
 
     def close(self) -> None:
+        """Drain the fetches in flight, wait for the copy streams and
+        unregister the ring arena: the server advances no more."""
         while self._inflight:
             self._drain_one()
         for sh in self._shards:
             if sh.copy_stream is not None:
                 sh.copy_stream.synchronize()
+        self.transport.unpin_arena()
         if self._pool:
             self._pool.shutdown()
 

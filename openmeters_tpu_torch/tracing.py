@@ -13,9 +13,12 @@ engine's), each inside the one above it:
 
 - ``serve.hop``: one hop of ``MeterServer.advance``;
   - ``serve.assemble``: ``host_seconds["assemble"]``;
-    - ``serve.copy_wait``: the wait for the last copy out of the buffer set;
-    - ``ingest.assemble``: one ``Transport.assemble`` (the native assembler);
-  - ``serve.h2d``: ``host_seconds["h2d"]``, the copies to the device;
+    - ``serve.copy_wait``: the wait for the last gather out of the buffer
+      set;
+    - ``ingest.assemble``: one ``Transport.assemble_desc`` (the native
+      descriptor pass; ``Transport.assemble``, the copying one, opens it
+      too);
+  - ``serve.h2d``: ``host_seconds["h2d"]``, the gathers onto the device;
   - ``serve.step``: ``host_seconds["step"]``;
     - ``engine.step``: one ``MeterEngine.step`` (its own time is the fold);
       - ``analyzers.<name>``: each analyzer stepped (``analyzers.spectrum``

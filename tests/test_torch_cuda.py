@@ -1039,3 +1039,133 @@ def test_loudness_graphs_on_a_two_shard_mesh_of_one_card(card):
     # more); the eager steps are the meta-device shape probes of the layout
     counts = {k: graphs.counts[k] for k in ("replays", "captures", "rebinds")}
     assert counts == {"replays": 2 * 2 + 2 * 60, "captures": 16, "rebinds": 4}
+
+
+# -- the hop's rows gathered from the transport's rings -------------------------------
+
+
+def _gather_case(rows, row_len, arena_len, seed):
+    """Pinned arena, staging rows and descriptors of every kind: one
+    segment at 8-byte and at 4-byte alignment, partial rows, the ring's
+    wrap (two segments), staged rows and zero rows."""
+    rng = np.random.default_rng(seed)
+    arena = torch.from_numpy(rng.standard_normal(arena_len).astype(np.float32)).pin_memory()
+    staging = torch.from_numpy(rng.standard_normal((rows, row_len)).astype(np.float32)).pin_memory()
+    kind = rng.integers(0, 6, rows)
+    off0 = rng.integers(0, arena_len - 2 * row_len, rows)
+    off0 = np.where(kind == 1, off0 | 1, off0 & ~1)  # kind 1: 4-byte aligned only
+    n0 = np.where(kind == 2, rng.integers(1, row_len, rows), row_len)  # kind 2: zeros after
+    n0 = np.where(kind == 3, rng.integers(1, row_len // 2, rows) * 2, n0)  # kind 3: a wrap
+    n1 = np.where(kind == 3, row_len - n0, 0)
+    off1 = np.where(kind == 3, rng.integers(0, row_len, rows) * 2, 0)
+    n0 = np.where(kind == 4, -1, np.where(kind == 5, 0, n0))  # 4: staged, 5: zero
+    desc = torch.from_numpy(np.stack([off0, n0, off1, n1], 1).astype(np.int64)).pin_memory()
+    return arena, staging, desc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 513, 8192])
+def test_ring_gather_kernel_matches_plain(card, s):
+    """The kernel against the plain gather, bit for bit, for the served
+    rows (256 frames x 2 channels): fewer rows than a block has warps, one
+    past a sweep of the grid, and S=8192 (16 sweeps); also in two shards'
+    parts, once with addresses looked up beforehand."""
+    from openmeters_tpu_torch.ops import ring_gather as rg
+
+    b, c = 256, 2
+    arena, staging, desc = _gather_case(s, b * c, 1 << 22, seed=40)
+    want = rg.ring_gather_reference(arena, staging, desc, torch.empty((s, b, c)))
+    before = rg.ring_gather.launches
+    got = rg.ring_gather(arena, staging, desc, torch.full((s, b, c), float("nan"), device=card))
+    parts = torch.full((s, b, c), float("nan"), device=card)
+    half = s // 2
+    rg.ring_gather(arena, staging, desc, parts[:half], row0=0)
+    rg.ring_gather(arena, staging, desc, parts[half:], row0=half, mapped=rg.mapped_addresses(arena, staging, desc))
+    torch.cuda.synchronize()
+    assert rg.ring_gather.launches == before + 3
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(parts.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ring_gather_reads_a_registered_transport(card):
+    """A transport's arena registered for the card: rows in one segment,
+    across the ring's end, staged (a mono stream) and zero, gathered on the
+    card as on the CPU, hop after hop."""
+    from openmeters_tpu_torch.ingest import Transport
+    from openmeters_tpu_torch.ops.ring_gather import ring_gather
+
+    s, b = 64, 256
+    tp = Transport(s, 2, b, 48_000.0, ring_seconds=(5 * b + 37.5) / 48_000.0)
+    tp.pin_arena([card])
+    try:
+        tp.set_channels(3, 1)
+        arena = tp.arena_tensor()
+        bufs = [[torch.from_numpy(a).pin_memory() for a in tp.make_desc_buffers()] for _ in range(2)]
+        audio = _stereo_audio(s, 40 * b, seed=41)
+        pos = np.zeros(s, np.int64)
+        for hop in range(40):
+            slot = hop % 2
+            for st in range(s):
+                if st % 7 == 5 or (st == 9 and 10 <= hop < 20):
+                    continue  # idle streams: zero rows
+                n = b + (st % 3 - 1) * 9
+                x = audio[st, pos[st] : pos[st] + n]
+                tp.push_pcm(st, x[:, :1].copy() if st == 3 else x, int(pos[st] / 48e3 * 1e9))
+                pos[st] += n
+            staging, reset, underrun, desc = bufs[slot]
+            tp.assemble_desc((staging.numpy(), reset.numpy(), underrun.numpy(), desc.numpy()), slot)
+            got = ring_gather(arena, staging, desc, torch.empty((s, b, 2), device=card))
+            want = ring_gather(arena, staging, desc, torch.empty((s, b, 2)))
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), f"hop {hop}"
+        rows = dict(zip(("one", "two", "staged", "zero"), tp.ingest_rows.tolist()))
+        assert min(rows.values()) > 0, rows
+    finally:
+        tp.unpin_arena()
+
+
+@pytest.mark.cuda
+def test_meter_server_card_blocks_match_cpu(card):
+    """``MeterServer`` on the card and on the CPU fed the same pushes
+    (partial spans, a gap, a mono stream, an idle stream, a generation
+    change): the device blocks each hop steps are identical, over 50 hops,
+    with one gather launch a hop."""
+    from openmeters_tpu_torch.engine import EngineConfig
+    from openmeters_tpu_torch.ops import ring_gather as rg
+    from openmeters_tpu_torch.serve import MeterServer, ServeConfig
+
+    s, b = 8, 256
+    engine = EngineConfig(channels=2, spectrogram=None, spectrum=None, oscilloscope=None, stereometer=None,
+                          waveform=None)
+    cfg = ServeConfig(n_streams=s, engine=engine, realtime=False, fetch="meters", coalesce_blocks=1)
+    servers = [MeterServer(cfg, device=card), MeterServer(cfg, device="cpu")]
+    audio = _stereo_audio(s, 60 * b, seed=42)
+    before = rg.ring_gather.launches
+    try:
+        for srv in servers:
+            srv.transport.set_channels(4, 1)
+        pos = np.zeros(s, np.int64)
+        for hop in range(50):
+            pushes = []
+            for st in range(s):
+                if st == 6 or (st == 2 and hop % 5 == 0):
+                    continue
+                n = b + (7 if hop % 2 else -7) * (st % 2)
+                gap = 40 if (st == 1 and hop == 20) else 0
+                x = audio[st, pos[st] : pos[st] + n]
+                pushes.append((st, x[:, :1].copy() if st == 4 else x, int((pos[st] + gap) / 48e3 * 1e9)))
+                pos[st] += n + gap
+            for srv in servers:
+                if hop == 30:
+                    srv.transport.set_generation(5, 2)
+                for p in pushes:
+                    srv.transport.push_pcm(*p)
+                srv.advance()
+            on_card, on_cpu = (srv._shards[0].blocks[srv._buf_i ^ 1] for srv in servers)  # noqa: SLF001
+            assert torch.equal(on_card.cpu().view(torch.int32), on_cpu.view(torch.int32)), f"hop {hop}"
+        assert rg.ring_gather.launches - before == 50
+        rows = servers[0].report()["ingest_rows"]
+        assert rows == servers[1].report()["ingest_rows"] and rows["staged"] > 0, rows
+    finally:
+        for srv in servers:
+            srv.close()

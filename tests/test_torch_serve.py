@@ -15,15 +15,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_ingest_scenarios import SCENARIOS, assert_same_hops, run_copying, run_descriptors  # noqa: E402
 from torch_pairs import NONE, stereo_audio, tiny_engine, to_jax, unaligned  # noqa: E402
 
 from openmeters_tpu import serve as jserve  # noqa: E402
 from openmeters_tpu import tracing as jtracing  # noqa: E402
+from openmeters_tpu.ingest import transport as jingest  # noqa: E402
 from openmeters_tpu_torch import serve as tserve  # noqa: E402
 from openmeters_tpu_torch import tracing as ttracing  # noqa: E402
 from openmeters_tpu_torch.analyzers.loudness import LoudnessConfig  # noqa: E402
 from openmeters_tpu_torch.analyzers.spectrum import SpectrumConfig  # noqa: E402
 from openmeters_tpu_torch.engine import EngineConfig, StreamMesh  # noqa: E402
+from openmeters_tpu_torch.ingest import Transport  # noqa: E402
 from openmeters_tpu_torch.serve import MeterServer, MultiRateMeterServer, ServeConfig  # noqa: E402
 from openmeters_tpu_torch.utils.parity import (  # noqa: E402
     check_meters,
@@ -466,11 +469,24 @@ def test_set_stream_layout_matches_jax():
 # -- copies of the JAX package's host code -----------------------------------------
 
 
-@pytest.mark.parametrize("name", ["transport.cpp", "feeder.cpp"])
+@pytest.mark.parametrize("name", ["feeder.cpp"])
 def test_ingest_sources_are_byte_identical(name):
     ours = (REPO / "openmeters_tpu_torch" / "ingest" / name).read_bytes()
     ref = (REPO / "openmeters_tpu" / "ingest" / name).read_bytes()
     assert hashlib.sha256(ours).digest() == hashlib.sha256(ref).digest()
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_transport_matches_jax(name):
+    """The port's ``transport.cpp`` parts from the JAX package's by design
+    (one ring arena, the descriptor pass, deferred release): fed the same
+    pushes, its copying assembler and its descriptor pass with the plain
+    gather give the JAX package's batches, masks, live counts and push
+    results, hop by hop."""
+    script = SCENARIOS[name]()
+    ref = run_copying(jingest.Transport(**script.transport), script)
+    assert_same_hops(run_copying(Transport(**script.transport), script), ref, f"{name}, copying")
+    assert_same_hops(run_descriptors(Transport(**script.transport), script), ref, f"{name}, descriptors")
 
 
 def test_serve_config_fields_and_defaults_match():

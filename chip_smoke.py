@@ -20,10 +20,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    chain's times at the flagship shape; (3c) the ``ring_gather`` kernel on
    one hop of a registered transport at S=8192, 256 x 2 (rows in one ring
    segment, across the ring's end, staged and zero) bit for bit against
-   its plain version and the copying assembler's batch, plus the kernel's,
-   the plain version's and the H2D copy of the batch's times, and the
-   seconds to register the rings; with the served 64,000-frame rings, then
-   4,800-frame ones;
+   its plain version, plus the kernel's, the plain version's and the H2D
+   copy of a pinned batch's times, and the seconds to register the rings;
+   with the served 64,000-frame rings, then 4,800-frame ones;
 4. the flagship engine through the public API on the card against the
    same on the CPU (S=32, 200 hops, two streams reset at hop 90);
 5. the flagship engine at S=8192 stereo streams: 40 warm-up hops, then 200
@@ -496,17 +495,16 @@ def timed_on(stream, fn, reps: int) -> float:
 
 def phase3c_ring_gather(dev) -> dict:
     """The ``ring_gather`` kernel on one hop of a registered transport at
-    the served shape (S=8192, 256 frames, 2 channels): two transports fed
-    the same pushes, one drained by the copying pass, the other by the
-    descriptor pass, with rows of every kind (one ring segment, across the
+    the served shape (S=8192, 256 frames, 2 channels), drained by the
+    descriptor pass with rows of every kind (one ring segment, across the
     ring's end, staged, zero); the kernel's block bit for bit the plain
-    gather's and the copying pass's batch.  Then, on a copy stream, the
-    kernel, the plain version (its index gather on the host into the
-    card's block) and the H2D copy of the copying pass's pinned batch
-    (``library_ms``: the copy the gather replaced) timed; the bound is the
-    hop's samples and descriptors over the copy engine's rate measured
-    here.  Rings of the served 64,000 frames (a 4.19 GB arena: the result),
-    then of 4,800 (0.31 GB), to tell the arena's size from the bytes."""
+    gather's.  Then, on a copy stream, the kernel, the plain version (its
+    index gather on the host into the card's block) and the H2D copy of
+    the plain gather's batch from pinned memory (``library_ms``: the copy
+    the gather replaced) timed; the bound is the hop's samples and
+    descriptors over the copy engine's rate measured here.  Rings of the
+    served 64,000 frames (a 4.19 GB arena: the result), then of 4,800
+    (0.31 GB), to tell the arena's size from the bytes."""
     result = {}
     for cap in (64_000, 4_800):
         got = _ring_gather_hop(dev, cap)
@@ -521,41 +519,37 @@ def _ring_gather_hop(dev, cap: int) -> dict:
 
     s, b, c, rate = FLAGSHIP_S, 256, 2, 48_000.0
     ns = lambda frames: int(frames / rate * 1e9)  # noqa: E731
-    tps = [Transport(s, c, b, rate, ring_seconds=cap / rate) for _ in range(2)]
+    tp = Transport(s, c, b, rate, ring_seconds=cap / rate)
     rng = np.random.default_rng(SEED + 30)
     audio = rng.standard_normal((s, 2 * b, c)).astype(np.float32)
     kind = np.arange(s) % 16  # 0: idle (zero row); 1: a gap inside the hop (staged); 2-4: across the end
     pre = np.where((kind >= 2) & (kind <= 4), cap - 2 - rng.integers(0, b - 3, s), 0)
     filler = np.zeros((cap, c), np.float32)
-    for tp in tps:
-        for st in np.flatnonzero(pre):
-            tp.push_pcm(int(st), filler[: pre[st]], 0)
-            tp.push_fault(int(st))
-        tp.assemble()  # the faults discard the filler: these rings' next rows start near their ends
-        for st in range(s):
-            if kind[st] == 1:
-                tp.push_pcm(st, audio[st, :100], 0)
-                tp.push_pcm(st, audio[st, 100:256], ns(150))
-            elif kind[st] != 0:
-                n = b + 64 * (st % 3)
-                tp.push_pcm(st, audio[st, :n], ns(pre[st]))
-    copying, described = tps
-    batch, rst_c, und_c, live_c = copying.assemble()
-    bufs = described.make_desc_buffers(pin_memory=True)
-    before = described.ingest_rows.copy()
-    rst_d, und_d, live_d = described.assemble_desc(bufs, 0)
-    rows = dict(zip(ROW_KINDS, (described.ingest_rows - before).tolist()))
-    check(np.array_equal(rst_c, rst_d) and np.array_equal(und_c, und_d) and live_c == live_d,
-          "phase 3c: the descriptor pass's masks differ from the copying pass's")
+    for st in np.flatnonzero(pre):
+        tp.push_pcm(int(st), filler[: pre[st]], 0)
+        tp.push_fault(int(st))
+    discard = tp.make_desc_buffers()
+    for _ in range(2):  # the faults discard the filler, then its space comes back:
+        tp.assemble_desc(discard, 1)  # these rings' next rows start near their ends
+    for st in range(s):
+        if kind[st] == 1:
+            tp.push_pcm(st, audio[st, :100], 0)
+            tp.push_pcm(st, audio[st, 100:256], ns(150))
+        elif kind[st] != 0:
+            n = b + 64 * (st % 3)
+            tp.push_pcm(st, audio[st, :n], ns(pre[st]))
+    bufs = tp.make_desc_buffers(pin_memory=True)
+    before = tp.ingest_rows.copy()
+    tp.assemble_desc(bufs, 0)
+    rows = dict(zip(ROW_KINDS, (tp.ingest_rows - before).tolist()))
     check(min(rows.values()) > 0, f"phase 3c: a row kind is missing: {rows}")
     t0 = time.perf_counter()
-    described.pin_arena([dev])
+    tp.pin_arena([dev])
     register_s = time.perf_counter() - t0
     try:
-        arena = described.arena_tensor()
+        arena = tp.arena_tensor()
         staging, desc = torch.from_numpy(bufs[0]), torch.from_numpy(bufs[3])
         mapped = mapped_addresses(arena, staging, desc)
-        want = torch.from_numpy(np.array(batch))
         plain = ring_gather_reference(arena, staging, desc, torch.empty((s, b, c)))
         out = torch.full((s, b, c), float("nan"), device=dev)
         copy = torch.cuda.Stream(dev)
@@ -563,24 +557,23 @@ def _ring_gather_hop(dev, cap: int) -> dict:
             ring_gather(arena, staging, desc, out, mapped=mapped)
         copy.synchronize()
         got = out.cpu()
-        check(torch.equal(plain.view(torch.int32), want.view(torch.int32)), "phase 3c: plain gather != copying pass")
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "phase 3c: kernel != copying pass")
-        err = float((got - want).abs().max())
-        pinned = want.pin_memory()
+        check(torch.equal(got.view(torch.int32), plain.view(torch.int32)), "phase 3c: kernel != plain gather")
+        err = float((got - plain).abs().max())
+        pinned = plain.pin_memory()
         kern = lambda: ring_gather(arena, staging, desc, out, mapped=mapped)  # noqa: E731
         lib = lambda: out.copy_(pinned, non_blocking=True)  # noqa: E731
         ref = lambda: ring_gather_reference(arena, staging, desc, out)  # noqa: E731
         p1, k1, l1, l2, k2, p2 = (timed_on(copy, f, r) for f, r in ((ref, 3), (kern, 50), (lib, 50),
                                                                      (lib, 50), (kern, 50), (ref, 3)))
     finally:
-        described.unpin_arena()
+        tp.unpin_arena()
     samples = s * b * c * 4
     link = samples / ((l1 + l2) / 2) / 1e6  # GB/s
     result = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
               "bound_ms": (samples + s * 32) / link / 1e6, "bound_by": "host link (the copy engine's rate)",
               "rows": rows, "register_s": register_s, "ring_frames": cap}
     log(f"phase 3c ring_gather S={s} {b}x{c}, {cap}-frame rings ({arena.numel() * 4 / 1e9:.3f} GB arena), rows "
-        f"{json.dumps(rows)}: bit-equal to the plain gather and the copying pass; kernel {k1:.4f}/{k2:.4f} ms "
+        f"{json.dumps(rows)}: bit-equal to the plain gather; kernel {k1:.4f}/{k2:.4f} ms "
         f"({samples / k1 / 1e6:.1f}/{samples / k2 / 1e6:.1f} GB/s), plain {p1:.4f}/{p2:.4f} ms, H2D copy of the "
         f"pinned batch {l1:.4f}/{l2:.4f} ms ({link:.1f} GB/s); bound {result['bound_ms']:.4f} ms "
         f"({samples + s * 32} B at {link:.1f} GB/s); registering the arena {register_s:.3f} s [{card_line()}]")

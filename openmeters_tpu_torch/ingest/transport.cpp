@@ -28,22 +28,19 @@
 //
 // The port's divergence from the JAX package's transport: every stream's
 // sample ring lies in one page-aligned arena (stream s at s * data_cap
-// floats), which a card can map, and an assembly may leave the samples
-// where they are.  Two entries run the one per-stream state machine
-// (assemble_rows) into two sinks:
-// - om_assemble_buf copies each row into a caller batch, as the JAX
-//   package's assembler does, and releases the ring space at once;
-// - om_assemble_desc writes a descriptor a row instead: up to two ring
-//   segments (the wrap), then zeros to the row's end.  A row it cannot
-//   describe so (silence between PCM, spans of another channel count, a
-//   third segment) is copied into the caller's staging row, and its
-//   descriptor points there.  Gathering the descriptors gives the bytes
-//   om_assemble_buf writes.  The space they name is released only by the
-//   next pass into the same buffer set that asks for it, once the reader
-//   of the set is done: each stream keeps its consumer read position
-//   (data_read: what buffered frames, the backlog cap and discards read
-//   and move) apart from the released tail that producers check for space
-//   (data_tail).
+// floats), which a card can map, and the assembly leaves the samples where
+// they are.  One entry, om_assemble_desc, runs the per-stream state machine
+// (assemble_rows) into a descriptor sink (DescSink): a descriptor a row, up
+// to two ring segments (the wrap), then zeros to the row's end.  A row it
+// cannot describe so (silence between PCM, spans of another channel count,
+// a third segment) is copied into the caller's staging row, and its
+// descriptor points there.  Gathering the descriptors gives the bytes the
+// JAX package's copying assembler writes for the same pushes.  The space
+// they name is released only by the next pass into the same buffer set that
+// asks for it, once the reader of the set is done: each stream keeps its
+// consumer read position (data_read: what buffered frames, the backlog cap
+// and discards read and move) apart from the released tail that producers
+// check for space (data_tail).
 // Producers write the rings with streaming stores (write_sanitized), as no
 // host core reads a ring while its lines could still be cached.  Each
 // stream's fields are grouped by writer (Stream), and the assembler
@@ -117,9 +114,6 @@ struct Stream {
   uint64_t carry_frames = 0;  // frames left in the partially consumed span
   bool has_carry = false;
   bool idle_reset_done = false;
-  // per-output-buffer "row is all zeros" bits: a double-buffered serving
-  // loop passes its buffer slot so idle streams skip the 2 KB re-zeroing
-  uint8_t clean[kSlots] = {0, 0, 0, 0};
   uint64_t idle_frames = 0;  // idle watchdog: consecutive synthesized underrun frames
   uint64_t held[kSlots] = {0, 0, 0, 0};  // data_read at the last descriptor pass into each slot
   // the assembler's, on a new span
@@ -153,6 +147,14 @@ inline uint64_t frames_to_ns(uint64_t frames, double rate) {
 }
 
 void fault(Stream& s) { s.fault_epoch.fetch_add(1, std::memory_order_acq_rel); }
+
+// The descriptor pass's two rare paths stay calls: inlined into its one
+// caller, g++ 12 at -O3 grows om_assemble_desc by a quarter (546 to 680
+// instructions) and the pass's hot loop with it.
+__attribute__((noinline)) void discard_until(Stream& s, uint64_t upto_span);
+__attribute__((noinline)) void copy_pcm(float* row, uint32_t C, const Stream& s,
+                                        uint32_t filled, uint64_t pos,
+                                        uint32_t take, uint32_t sch);
 
 // End position (in ring samples) of a span's payload.
 inline uint64_t span_data_end(const SpanRec& r, uint32_t ch) {
@@ -219,7 +221,7 @@ inline float sanitized(const float* src) {
 
 // Producers write the rings with streaming stores where the CPU has AVX2:
 // no host core reads a ring while its lines could still be cached (a card
-// gathers the rows over the host link; the copying assembler reads them
+// gathers the rows over the host link; a gather on the host reads them
 // long after), so the 32-byte stores skip the read for ownership and leave
 // the caches alone (12 GB/s from two producer threads on the served cells'
 // host, against 8.2 GB/s for a plain memcpy).  The caller fences before it
@@ -290,38 +292,6 @@ void copy_pcm(float* row, uint32_t C, const Stream& s, uint32_t filled,
     }
   }
 }
-
-// The copying sink: each row into `out` [n_streams, B, C], its ring space
-// released as soon as the row is written.
-struct CopySink {
-  float* out;
-  uint32_t B, C;
-  uint32_t buf_id;  // < kSlots: clean-row tracking for that caller buffer
-  float* row = nullptr;
-
-  void begin(Stream&, uint32_t si) { row = out + (size_t)si * B * C; }
-  void pcm(const Stream& s, uint32_t filled, uint64_t pos, uint32_t take,
-           uint32_t sch) {
-    copy_pcm(row, C, s, filled, pos, take, sch);
-  }
-  // Silence spans write their zeros directly.
-  void silence(uint32_t filled, uint32_t take) {
-    std::memset(row + (size_t)filled * C, 0, sizeof(float) * take * C);
-  }
-  void end(Stream& s, uint32_t, uint32_t filled) {
-    // zero the synthesized-silence tail — skipped when the whole row is
-    // untouched and this buffer slot's row is known to already be zero
-    const bool track_clean = buf_id < kSlots;
-    if (filled < B) {
-      bool skip = track_clean && filled == 0 && s.clean[buf_id];
-      if (!skip)
-        std::memset(row + (size_t)filled * C, 0, sizeof(float) * (B - filled) * C);
-    }
-    if (track_clean) s.clean[buf_id] = filled == 0 ? 1 : 0;
-    s.data_tail.store(s.data_read.load(std::memory_order_relaxed),
-                      std::memory_order_release);
-  }
-};
 
 // The descriptor sink: per row, int64 {off0, n0, off1, n1} (arena offsets
 // and lengths in samples; zeros past n0 + n1), or {0, -1, 0, 0} for a row
@@ -773,35 +743,8 @@ uint64_t om_fault_count(void* h, uint32_t stream) {
              : 0;
 }
 
-// Assembler: fill streams [begin, end) of one [n_streams, block_frames,
-// channels] float32 batch (assemble_rows has the semantics).  Disjoint
-// ranges may run on different threads concurrently (each Stream has a
-// single consumer).  Returns the number of streams in the range that
-// produced real PCM.
-int32_t om_assemble_buf(void* h, float* out, uint8_t* reset_mask,
-                        uint8_t* underrun_mask, uint32_t begin, uint32_t end,
-                        uint32_t buf_id) {
-  auto* t = static_cast<Transport*>(h);
-  CopySink sink{out, t->block_frames, t->channels, buf_id};
-  return assemble_rows(t, sink, reset_mask, underrun_mask, begin, end);
-}
-
-int32_t om_assemble_range(void* h, float* out, uint8_t* reset_mask,
-                          uint8_t* underrun_mask, uint32_t begin,
-                          uint32_t end) {
-  // 0xff: no clean-row tracking (unknown caller buffer)
-  return om_assemble_buf(h, out, reset_mask, underrun_mask, begin, end, 0xff);
-}
-
-int32_t om_assemble(void* h, float* out, uint8_t* reset_mask,
-                    uint8_t* underrun_mask) {
-  auto* t = static_cast<Transport*>(h);
-  return om_assemble_buf(h, out, reset_mask, underrun_mask, 0, t->n_streams,
-                         0xff);
-}
-
-// Assembler, descriptor sink: the same per-stream pass over [begin, end) as
-// om_assemble_buf, writing desc [n_streams, 4] int64 (see DescSink) and,
+// Assembler: one hop of streams [begin, end) (assemble_rows has the
+// semantics), writing desc [n_streams, 4] int64 (see DescSink) and,
 // for rows it cannot describe, their samples into staging [n_streams,
 // block_frames, channels].  counts[4] receives this range's rows of one
 // segment, of two, staged and of none.  The ring space read stays held for
@@ -809,7 +752,8 @@ int32_t om_assemble(void* h, float* out, uint8_t* reset_mask,
 // by stream, what the passes into `slot` since the last release read: the
 // caller sets it on its first pass into a set once the reader of the set's
 // last rows is done.  Returns the number of streams in the range that
-// produced real PCM, or -1 for a slot out of range.
+// produced real PCM, or -1 for a slot out of range.  Disjoint ranges may run
+// on different threads concurrently (each Stream has a single consumer).
 int32_t om_assemble_desc(void* h, float* staging, uint8_t* reset_mask,
                          uint8_t* underrun_mask, int64_t* desc,
                          uint64_t* counts, uint32_t begin, uint32_t end,

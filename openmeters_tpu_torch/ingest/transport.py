@@ -2,14 +2,13 @@
 ``ingest/transport.py``; ``feeder.cpp`` is the JAX package's source, copied
 unchanged).
 
-``transport.cpp`` started as the JAX package's and keeps its semantics and
-its copying assembler (``om_assemble_buf``, :meth:`Transport.assemble`),
-whose batches match the JAX package's for the same pushes.  It differs in
-where the samples live and when ring space is freed: every stream's ring
-lies in one page-aligned arena, and the descriptor pass
-(:meth:`Transport.assemble_desc`, the serving loop's) leaves the samples
-there, so that a card gathers them (``ops/ring_gather.py``); their space
-goes back to the producers at a later pass into the same buffer set.
+``transport.cpp`` started as the JAX package's and keeps its semantics.  It
+differs in where the samples live and when ring space is freed: every
+stream's ring lies in one page-aligned arena, and its one assembler, the
+descriptor pass (:meth:`Transport.assemble_desc`), leaves the samples
+there, so that a card gathers them (``ops/ring_gather.py``; the gathered
+rows are the JAX package's batch for the same pushes); their space goes
+back to the producers at a later pass into the same buffer set.
 
 The shared library builds with ``g++`` at first use into
 ``build/openmeters_tpu_torch/`` beside the package, named by a hash of the
@@ -95,32 +94,6 @@ def _load():
     lib.om_stream_channels.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
     lib.om_fault_count.restype = ctypes.c_uint64
     lib.om_fault_count.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
-    lib.om_assemble.restype = ctypes.c_int32
-    lib.om_assemble.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_uint8),
-    ]
-    lib.om_assemble_range.restype = ctypes.c_int32
-    lib.om_assemble_range.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_uint32,
-        ctypes.c_uint32,
-    ]
-    lib.om_assemble_buf.restype = ctypes.c_int32
-    lib.om_assemble_buf.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_uint32,
-        ctypes.c_uint32,
-        ctypes.c_uint32,
-    ]
     lib.om_assemble_desc.restype = ctypes.c_int32
     lib.om_assemble_desc.argtypes = [
         ctypes.c_void_p,
@@ -173,9 +146,10 @@ class Transport:
     """Multi-stream host transport feeding fixed-shape engine batches.
 
     Producer threads call :meth:`push_pcm` / :meth:`push_silence` /
-    :meth:`push_fault`; the engine loop calls :meth:`assemble` or
-    :meth:`assemble_desc` once per hop.  ``ingest_rows`` counts the
-    descriptor pass's rows by kind (:data:`ROW_KINDS`) since the start.
+    :meth:`push_fault`; the engine loop calls :meth:`assemble_desc` once
+    per hop (:meth:`assemble`, the JAX package's call, runs it and gathers
+    the rows on the host).  ``ingest_rows`` counts the descriptor pass's
+    rows by kind (:data:`ROW_KINDS`) since the start.
     """
 
     def __init__(
@@ -202,9 +176,6 @@ class Transport:
         self._pinned = None  # the devices the arena is registered for (pin_arena)
         self._arena = None
         self.ingest_rows = np.zeros((len(ROW_KINDS),), np.uint64)
-        self._batch = np.zeros((n_streams, block_frames, channels), np.float32)
-        self._reset = np.zeros((n_streams,), np.uint8)
-        self._underrun = np.zeros((n_streams,), np.uint8)
         # host-side mirror of each stream's negotiated width so the hot
         # push path validates without an FFI round-trip per push; writes
         # happen on the stream's own producer thread (set_channels contract)
@@ -274,46 +245,24 @@ class Transport:
     def buffered_frames(self, stream: int) -> int:
         return self._lib.om_buffered_frames(self._h, stream)
 
-    def assemble(self, pool=None, shards: int = 1, out=None, buf_id=None):
-        """Drain one hop: returns (batch [S,B,C] f32, reset [S] bool,
-        underrun [S] bool, n_live).
+    def assemble(self, pool=None, shards: int = 1):
+        """Drain one hop as the JAX package's ``Transport.assemble`` does:
+        returns (batch [S,B,C] f32, reset [S] bool, underrun [S] bool,
+        n_live).  A descriptor pass into buffer set 0, releasing what the
+        last one read, then its rows gathered on the host into a new batch;
+        so a caller mixes this with :meth:`assemble_desc` only while no
+        gather is pending.  ``pool`` and ``shards`` as for
+        :meth:`assemble_desc`."""
+        import torch
 
-        ``buf_id`` (0-3) identifies a stable caller buffer slot so idle
-        stream rows that are already zero in that buffer skip re-zeroing.
+        from openmeters_tpu_torch.ops.ring_gather import ring_gather_reference
 
-        With ``pool`` (a ``concurrent.futures.ThreadPoolExecutor``) and
-        ``shards > 1``, disjoint stream ranges are assembled concurrently —
-        ctypes releases the GIL for the duration of each native call, so
-        this scales the host assembler across cores for large stream counts.
-
-        ``out=(batch, reset, underrun)`` assembles into caller-owned numpy
-        buffers instead of the shared internal ones — the serving loop
-        alternates two buffer sets so the asynchronous copy of hop N to the
-        card can overlap assembly of hop N+1.
-        """
-        with span("ingest.assemble"):
-            batch, reset, underrun = out if out is not None else (
-                self._batch, self._reset, self._underrun
-            )
-            bid = 0xFF if buf_id is None else buf_id
-            outp = batch.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-            rst = reset.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-            und = underrun.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-            if pool is None or shards <= 1:
-                n_live = self._lib.om_assemble_buf(
-                    self._h, outp, rst, und, 0, self.n_streams, bid
-                )
-            else:
-                step = -(-self.n_streams // shards)
-                futs = [
-                    pool.submit(
-                        self._lib.om_assemble_buf, self._h, outp, rst, und,
-                        lo, min(lo + step, self.n_streams), bid,
-                    )
-                    for lo in range(0, self.n_streams, step)
-                ]
-                n_live = sum(f.result() for f in futs)
-            return batch, reset.astype(bool), underrun.astype(bool), n_live
+        bufs = self.make_desc_buffers()
+        reset, underrun, n_live = self.assemble_desc(bufs, 0, pool=pool, shards=shards)
+        staging, desc = torch.from_numpy(bufs[0]), torch.from_numpy(bufs[3])
+        batch = torch.empty((self.n_streams, self.block_frames, self.channels))
+        ring_gather_reference(self.arena_tensor(), staging, desc, batch)
+        return batch.numpy(), reset, underrun, n_live
 
     def assemble_desc(self, out, slot: int, pool=None, shards: int = 1, release: bool = True):
         """Drain one hop into descriptors: returns (reset [S] bool,
@@ -327,10 +276,11 @@ class Transport:
         passes into it since the last release read, each stream's before it
         reads the stream.  So a caller passes ``release`` on its first pass
         into a set once the gather out of the set is done, and not on
-        further passes into it before that set's rows are gathered.  A
-        caller that mixes this with :meth:`assemble` does so only while no
-        gather is pending: a copying pass frees what it reads at once.
-        ``pool`` and ``shards`` as for :meth:`assemble`.
+        further passes into it before that set's rows are gathered.
+
+        With ``pool`` (a ``concurrent.futures.ThreadPoolExecutor``) and
+        ``shards > 1``, disjoint stream ranges are assembled concurrently:
+        ctypes releases the GIL for the duration of each native call.
         """
         with span("ingest.assemble"):
             staging, reset, underrun, desc = out
@@ -359,14 +309,23 @@ class Transport:
 
     def make_desc_buffers(self, pin_memory: bool = False):
         """One zeroed ``(staging, reset, underrun, desc)`` buffer set for
-        :meth:`assemble_desc`; ``pin_memory`` as for :meth:`make_buffers`
-        (a card then reads the staging rows and descriptors in place)."""
-        staging, reset, underrun = self.make_buffers(pin_memory)
+        :meth:`assemble_desc`.  With ``pin_memory`` the arrays are numpy
+        views of page-locked ``torch`` tensors, so a card reads the staging
+        rows and descriptors in place."""
+        shapes = (
+            ((self.n_streams, self.block_frames, self.channels), np.float32),
+            ((self.n_streams,), np.uint8),
+            ((self.n_streams,), np.uint8),
+            ((self.n_streams, 4), np.int64),
+        )
         if not pin_memory:
-            return staging, reset, underrun, np.zeros((self.n_streams, 4), np.int64)
+            return tuple(np.zeros(shape, dtype) for shape, dtype in shapes)
         import torch
 
-        return staging, reset, underrun, torch.zeros((self.n_streams, 4), dtype=torch.int64, pin_memory=True).numpy()
+        dtypes = {np.float32: torch.float32, np.uint8: torch.uint8, np.int64: torch.int64}
+        return tuple(
+            torch.zeros(shape, dtype=dtypes[dtype], pin_memory=True).numpy() for shape, dtype in shapes
+        )
 
     def arena_tensor(self):
         """A float32 ``torch`` vector over the ring arena (no copy), the
@@ -403,25 +362,6 @@ class Transport:
             torch.cuda.synchronize(dev)
         host_unregister(self._lib.om_arena(self._h))
         self._pinned = None
-
-    def make_buffers(self, pin_memory: bool = False):
-        """One zeroed ``(batch, reset, underrun)`` buffer set for
-        :meth:`assemble`.  With ``pin_memory`` the arrays are numpy views of
-        page-locked ``torch`` tensors, so a card can copy from them
-        asynchronously."""
-        shapes = (
-            ((self.n_streams, self.block_frames, self.channels), np.float32),
-            ((self.n_streams,), np.uint8),
-            ((self.n_streams,), np.uint8),
-        )
-        if not pin_memory:
-            return tuple(np.zeros(shape, dtype) for shape, dtype in shapes)
-        import torch
-
-        dtypes = {np.float32: torch.float32, np.uint8: torch.uint8}
-        return tuple(
-            torch.zeros(shape, dtype=dtypes[dtype], pin_memory=True).numpy() for shape, dtype in shapes
-        )
 
     def backlog_blocks(self) -> int:
         """Max whole blocks buffered over all streams — the serving loop

@@ -7,7 +7,7 @@ host batch that is then sent to the device.  The port's descriptor pass
 one descriptor a row, int64 ``{off0, n0, off1, n1}``: ``arena[off0 :
 off0 + n0]``, then ``arena[off1 : off1 + n1]``, then zeros to the row's
 end; ``n0 == -1`` marks a row copied into its staging row.  Gathering
-gives the bytes the copying assembler writes.
+gives the bytes the JAX package's assembler writes for the same pushes.
 
 :func:`ring_gather` launches ``csrc/ring_gather.cu`` where ``out`` is a
 CUDA tensor (the card reads arena, staging rows and descriptors from

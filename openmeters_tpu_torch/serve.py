@@ -1060,8 +1060,10 @@ def ingest_benchmark(
     assembler_shards: int = 1, realtime: bool = False,
 ) -> dict:
     """Host-only ingest throughput: native feeders push flat out (with
-    backpressure) while the assembler drains; the C++ path's sustainable
-    streams without any device work."""
+    backpressure) while the descriptor pass drains, alternating two buffer
+    sets as the serving loop does (each pass releases its set's space, as
+    nothing gathers the rows); the C++ path's sustainable streams without
+    any device work."""
     from openmeters_tpu_torch.ingest import Feeder
 
     tp = Transport(
@@ -1074,12 +1076,12 @@ def ingest_benchmark(
         max_buffered_frames=0 if realtime else ring_frames // 2,
     )
     pool = ThreadPoolExecutor(assembler_shards) if assembler_shards > 1 else None
-    bufs = tp.make_buffers()
+    bufs = [tp.make_desc_buffers() for _ in range(2)]
     t0 = time.perf_counter()
     hops = 0
     frames_out = 0
     while time.perf_counter() - t0 < duration_s:
-        _, _, _, live = tp.assemble(pool=pool, shards=assembler_shards, out=bufs)
+        _, _, live = tp.assemble_desc(bufs[hops % 2], hops % 2, pool=pool, shards=assembler_shards)
         hops += 1
         frames_out += block_frames * live
     wall = time.perf_counter() - t0

@@ -16,8 +16,7 @@ engine's), each inside the one above it:
     - ``serve.copy_wait``: the wait for the last gather out of the buffer
       set;
     - ``ingest.assemble``: one ``Transport.assemble_desc`` (the native
-      descriptor pass; ``Transport.assemble``, the copying one, opens it
-      too);
+      descriptor pass);
   - ``serve.h2d``: ``host_seconds["h2d"]``, the gathers onto the device;
   - ``serve.step``: ``host_seconds["step"]``;
     - ``engine.step``: one ``MeterEngine.step`` (its own time is the fold);

@@ -1,10 +1,10 @@
 """The port's descriptor pass (``Transport.assemble_desc``) and the plain
-gather of ``ops/ring_gather.py`` against the copying assembler
-(``om_assemble_buf``) on the same pushes: the gathered batches bit for bit,
-the reset and underrun masks, the live count and every push's result, in
-the scenarios of ``tests/torch_ingest_scenarios.py``; the deferred release
-of ring space; the row counters.  No JAX; the card's kernel is held to the
-plain gather in ``tests/test_torch_cuda.py``."""
+gather of ``ops/ring_gather.py`` against the JAX package's copying
+assembler on the same pushes: the gathered batches bit for bit, the reset
+and underrun masks, the live count, every push's result and the buffered
+frames, in the scenarios of ``tests/torch_ingest_scenarios.py``; the
+deferred release of ring space; the row counters.  The card's kernel is
+held to the plain gather in ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -22,6 +22,7 @@ from torch_ingest_scenarios import (  # noqa: E402
     seconds,
 )
 
+from openmeters_tpu.ingest import transport as jingest  # noqa: E402
 from openmeters_tpu_torch.ingest import Transport  # noqa: E402
 from openmeters_tpu_torch.ingest.transport import ROW_KINDS  # noqa: E402
 from openmeters_tpu_torch.ops.ring_gather import ring_gather, ring_gather_reference  # noqa: E402
@@ -38,9 +39,9 @@ EXERCISES = {
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_descriptor_pass_gathers_what_the_copying_assembler_writes(name):
+def test_descriptor_pass_gathers_what_the_jax_assembler_writes(name):
     script = SCENARIOS[name]()
-    copying, described = Transport(**script.transport), Transport(**script.transport)
+    copying, described = jingest.Transport(**script.transport), Transport(**script.transport)
     ref = run_copying(copying, script)
     ours = run_descriptors(described, script)
     assert_same_hops(ours, ref, name)
@@ -53,19 +54,21 @@ def test_descriptor_pass_gathers_what_the_copying_assembler_writes(name):
 
 
 def test_a_push_into_held_space_waits_for_release():
-    """A ring of 8 blocks, full: after one pass reads a block, the copying
-    transport takes a block's push at once, the descriptor pass's transport
-    only once a later pass into that buffer set releases it (a pass into it
-    without ``release``, or into another set, frees nothing of it); both
-    read the same buffered frames.  A fault discards the backlog at once,
-    and its space too waits for the release."""
+    """A ring of 8 blocks, full: after one pass reads a block, the JAX
+    package's copying transport takes a block's push at once, the port's
+    descriptor pass's transport only once a later pass into that buffer set
+    releases it (a pass into it without ``release``, or into another set,
+    frees nothing of it); both read the same buffered frames.  A fault
+    discards the backlog at once, and its space too waits for the
+    release."""
     script = Script(1, 1, seed=30, ring_seconds=seconds(8 * B))
     script.pcm(0, 0, 8 * B)
     script.pcm(0, 0, B)
     script.pcm(0, 0, B)
     script.pcm(0, 0, 2 * B)
     full, more, after, two = script.ops[0]
-    copying, described, faulted = (Transport(**script.transport) for _ in range(3))
+    copying = jingest.Transport(**script.transport)
+    described, faulted = (Transport(**script.transport) for _ in range(2))
     for tp in (copying, described, faulted):
         assert apply(tp, full) == 0
     copying.assemble()

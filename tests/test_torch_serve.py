@@ -480,12 +480,10 @@ def test_ingest_sources_are_byte_identical(name):
 def test_transport_matches_jax(name):
     """The port's ``transport.cpp`` parts from the JAX package's by design
     (one ring arena, the descriptor pass, deferred release): fed the same
-    pushes, its copying assembler and its descriptor pass with the plain
-    gather give the JAX package's batches, masks, live counts and push
-    results, hop by hop."""
+    pushes, its descriptor pass with the plain gather gives the JAX
+    package's batches, masks, live counts and push results, hop by hop."""
     script = SCENARIOS[name]()
     ref = run_copying(jingest.Transport(**script.transport), script)
-    assert_same_hops(run_copying(Transport(**script.transport), script), ref, f"{name}, copying")
     assert_same_hops(run_descriptors(Transport(**script.transport), script), ref, f"{name}, descriptors")
 
 

@@ -1,13 +1,12 @@
 """Scripted pushes for the transport tests: each scenario is a list of
 producer calls a hop, applied alike to every transport under test, and two
-runners that assemble them, hop by hop, through the copying assembler
-(``Transport.assemble``, the JAX package's or the port's) and through the
-port's descriptor pass plus the plain gather (``assemble_desc``,
-``ops/ring_gather.py``), as ``MeterServer`` runs it: two buffer sets of
-``scan_hops`` descriptor sets each, a set's rows gathered only just
-before the first pass into it again, which gives their ring space back, so
-a gather reads rings the producers could have refilled had the space gone
-back early."""
+runners that assemble them, hop by hop, through the JAX package's copying
+assembler (``Transport.assemble``) and through the port's descriptor pass
+plus the plain gather (``assemble_desc``, ``ops/ring_gather.py``), as
+``MeterServer`` runs it: two buffer sets of ``scan_hops`` descriptor sets
+each, a set's rows gathered only just before the first pass into it
+again, which gives their ring space back, so a gather reads rings the
+producers could have refilled had the space gone back early."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -218,8 +217,8 @@ SCENARIOS = {
 
 def run_copying(tp, script: Script) -> list:
     """``[(batch, reset, underrun, n_live, push results)]`` a hop through
-    ``tp.assemble`` into two buffer sets (a set's buffer id where
-    ``scan_hops`` is 1, as the serving loop used to)."""
+    the JAX package's ``tp.assemble`` into two buffer sets (a set's buffer
+    id where ``scan_hops`` is 1, as its serving loop does)."""
     k = script.scan_hops
     bufs = [[tp.make_buffers() for _ in range(k)] for _ in range(2)]
     pool = ThreadPoolExecutor(script.shards) if script.shards > 1 else None
